@@ -1,0 +1,108 @@
+"""Config system: the YAML experiment file is the public interface.
+
+The port's own copy of ``rpnet_tpu/config.py`` (the port imports nothing of
+the JAX package), cut to the keys the port reads, so both CLIs read one
+YAML identically. The schema is the reference's (upstream yamls/example.yml,
+loaded by utils/util.py:79-88 `load_yaml`): a single flat YAML dict drives
+data paths, episode shape, model choice, registration switches, refinement
+settings and the eval protocol. Keys the port does not read pass through
+unchanged.
+
+:class:`Config` adds the defaults in one place (the reference scatters
+`.get()` defaults through the code, e.g. `scale` at net/rp_net.py:200 and
+`crop_size` at dataset/few_shot_reader.py:341).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import yaml
+
+
+def load_yaml(path: str) -> Dict[str, Any]:
+    """Load a YAML experiment file into its flat dict."""
+    with open(path) as f:
+        return yaml.load(f, Loader=yaml.FullLoader)
+
+
+# Defaults of every key the port reads, as the JAX package sets them.
+_DEFAULTS: Dict[str, Any] = {
+    # --- data geometry (few_shot_reader.py:385-398, :341-343) ---
+    "num_slice": 280,
+    "num_x": 272,
+    "num_y": 272,
+    "crop_size": [256, 256],
+    "pad_value": -1024,
+    "HU_range": [-1024, 3072],
+    # --- episode shape (few_shot_reader.py:256-257, :464-473, :517) ---
+    "n_shot": 1,
+    "n_way": 1,
+    "k": 12,
+    "test_shot": None,         # defaults to n_shot (few_shot_reader.py:517)
+    # --- splits ---
+    "data_dir": "",
+    "eval_set_name": "split/abd_110_test.csv",
+    "class_csv_dir": "./split/abd_110_classes",
+    "eval_classes": ["Liver"],
+    # --- model (net/model.py:4-7, net/rp_net.py:195-224) ---
+    "net": "RP_Net",
+    "backbone": "UNet",
+    "scale": 4,                # feature-map downsample used for mask pooling
+    "unet_normalize_type": "BatchNorm2d",
+    "mask_feature_map": "no",
+    "use_relation_enc": "relation",
+    # --- refinement (net/rp_net.py:201, :281-312; example.yml:107-110) ---
+    "n_iter_refinement": 4,
+    "n_test_iter_refinement": 10,
+    "soft_mask": False,
+    "mask_refinement_correlation_radius": 5,
+    # --- registration (few_shot_reader.py:556-557, example.yml:99-101) ---
+    "use_registration_loss": True,
+    "do_deformable": False,
+    "reg_affine_iters": 50,    # few_shot_reader.py:159 iters=[50, ...]
+    "reg_lr": 0.01,            # few_shot_reader.py:148-149
+    "reg_fit_scale": 1,        # fit theta on an image pooled by N (1 = reference-exact)
+    # --- eval protocol (test_rpnet.py:112-145) ---
+    "n_runs": 5,
+    "ckpt": None,
+    "out_dir": None,
+    "seed": 0,
+    # --- additions of the JAX package that the port keeps ---
+    "max_slices": 288,         # cap on query slices per episode
+    "compute_dtype": None,     # None = bfloat16 network, f32 registration
+                               # and metrics; float32 pins f32 throughout
+    "volume_cache": 8,         # sampler LRU over preprocessed volumes
+                               # (entries; 0 disables): eval revisits the
+                               # same volumes every run
+    "use_all_supports": False,  # not ported (raises when set)
+    "multishot_fusion": False,  # not ported (raises when set)
+    "eval_3d": False,           # not ported (raises when set)
+}
+
+
+@dataclasses.dataclass
+class Config:
+    """The flat YAML dict over the defaults; ``cfg[key]`` / ``cfg.get(key,
+    default)`` as on a dict."""
+
+    raw: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        merged = dict(_DEFAULTS)
+        merged.update({k: v for k, v in self.raw.items() if v is not None or k not in _DEFAULTS})
+        if merged.get("test_shot") is None:
+            merged["test_shot"] = merged["n_shot"]
+        self._d = merged
+
+    def __getitem__(self, key):
+        return self._d[key]
+
+    def get(self, key, default=None):
+        return self._d.get(key, default)
+
+    def replace(self, **kw) -> "Config":
+        d = dict(self.raw)
+        d.update(kw)
+        return Config(d)

@@ -1,0 +1,221 @@
+"""Host-side episodic sampler: volumes → fixed-shape slice episodes.
+
+The port's copy of the eval half of ``rpnet_tpu/episode/sampler.py``
+(dataset/few_shot_reader.py):
+
+  * volume loading + preprocessing  — FewshotVolumeReader.load_image_and_mask
+    (few_shot_reader.py:324-345): NRRD read → truncate → pad2factor(16) →
+    z-crop to annotation → center-crop → HU normalize;
+  * episode index & support sampling — (class, volume) pairs, supports drawn
+    by ``random.choices`` excluding the query (few_shot_reader.py:255-283).
+    Stdlib ``random`` is kept on purpose: both packages consume the same
+    stream, so a seed draws the same supports in either CLI;
+  * slice binning — k evenly spaced support slices matched to query-slice
+    bins (few_shot_reader.py:465-545), with the eval-mode ``test_shot``
+    shot-offset expansion.
+
+Volumes are read through the port's own NRRD codec. Train-mode assembly,
+the native raw cache and the index-only ``sample_spec`` twin are not ported
+yet (ROADMAP.md).
+
+Reference defects kept as the JAX package keeps them: the eval support loop
+overwrites across supports, so only the LAST sampled support volume is used.
+"""
+
+from __future__ import annotations
+
+import csv
+import dataclasses
+import os
+import random
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from rpnet_tpu_torch.core import nrrd_io
+from rpnet_tpu_torch.core.transforms import (crop, keep_only_annotation_z_slices,
+                                             normalize, pad2factor,
+                                             truncate_image)
+
+
+@dataclasses.dataclass
+class Episode:
+    """One eval episode, fixed shapes, slice axis leading, all float32.
+
+      support_images: (test_shot, Dq, H, W) in [-1, 1]
+      support_labels: (test_shot, Dq, H, W) binary
+      query_images:   (Dq, H, W) in [-1, 1]
+      query_labels:   (Dq, H, W) binary
+    """
+    support_images: np.ndarray
+    support_labels: np.ndarray
+    query_images: np.ndarray
+    query_labels: np.ndarray
+    class_id: int
+    pid: str
+    supp_pids: List[Tuple[int, int]]
+
+    @property
+    def n_slices(self) -> int:
+        return self.query_images.shape[0]
+
+
+def slice_bins(num_support_slices: Sequence[int], num_query_slices: int, k: int):
+    """Support/query slice binning (few_shot_reader.py:465-473).
+
+    Returns (k, support_indices per support, query_bin_edges).
+    """
+    nums = list(num_support_slices) + [num_query_slices]
+    k = min([k] + nums)
+    support_idx = [
+        np.floor(np.arange(n / k / 2, n, n / k)).astype(np.int32)[:k]
+        for n in num_support_slices
+    ]
+    edges = np.arange(0, num_query_slices, num_query_slices / k).tolist() + [num_query_slices]
+    edges = np.floor(np.array(edges)).astype(np.int32)[:k + 1]
+    edges[-1] = num_query_slices
+    return k, support_idx, edges
+
+
+class EpisodeSampler:
+    """Episodic eval dataset over a preprocessed NRRD directory (training
+    episodes are not ported yet)."""
+
+    def __init__(self, data_dir: str, set_name: str, config):
+        self.data_dir = data_dir
+        self.cfg = config
+        self.class_csv_dir = config["class_csv_dir"]
+
+        if not set_name.endswith(".csv"):
+            raise ValueError(f"unsupported split file {set_name} (one pid per "
+                             "line, .csv)")
+        names = np.genfromtxt(set_name, dtype=str, delimiter="\n")
+        self.filenames = [str(n) for n in np.atleast_1d(names)]
+
+        self.classes = config["eval_classes"]
+        self._read_data_meta()
+        self.indices: List[Tuple[int, int]] = [
+            (ci, di) for ci in range(len(self.classes))
+            for di in range(len(self.data_info[ci]))
+        ]
+        # LRU over load_image_and_mask results: every eval run revisits the
+        # same volumes, and the chain is deterministic given the config.
+        # Entries are returned read-only. ``volume_cache: 0`` disables.
+        self._vol_cache: "OrderedDict[Tuple[str, str], Tuple[np.ndarray, np.ndarray]]" = OrderedDict()
+        self._vol_cache_max = int(config.get("volume_cache", 8))
+
+    def _read_data_meta(self):
+        self.data_info: List[List[Dict]] = []
+        names = set(self.filenames)
+        for roi in self.classes:
+            rows = []
+            with open(os.path.join(self.class_csv_dir, f"{roi}.csv")) as f:
+                for row in csv.DictReader(f):
+                    if row["pid"] in names:
+                        rows.append({"pid": row["pid"],
+                                     "z_start": row["z_start"],
+                                     "z_end": row["z_end"]})
+            self.data_info.append(rows)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def load_image_and_mask(self, pid: str, roi: str):
+        """The per-volume preprocessing chain (few_shot_reader.py:324-345)."""
+        key = (pid, roi)
+        hit = self._vol_cache.get(key)
+        if hit is not None:
+            self._vol_cache.move_to_end(key)
+            return hit
+        cfg = self.cfg
+        pad_factor = 16
+        mask, _ = nrrd_io.read(os.path.join(self.data_dir, f"{pid}_{roi}.nrrd"))
+        mask = mask.astype(np.float32)
+        mask = truncate_image(mask, cfg["num_slice"], cfg["num_x"], cfg["num_y"])
+        mask = pad2factor(mask, factor=pad_factor, pad_value=0)[None]
+
+        imgs, _ = nrrd_io.read(os.path.join(self.data_dir, f"{pid}_clean.nrrd"))
+        imgs = truncate_image(imgs.astype(np.float32), cfg["num_slice"],
+                              cfg["num_x"], cfg["num_y"])
+        imgs = pad2factor(imgs, factor=pad_factor, pad_value=cfg["pad_value"])[None]
+
+        imgs, mask = keep_only_annotation_z_slices(imgs, mask)
+        imgs, mask = crop(imgs, mask, cfg.get("crop_size", [256, 256]),
+                          cfg.get("pad_value", -1024), 0)
+        imgs = normalize(imgs, minimum=cfg["HU_range"][0], maximum=cfg["HU_range"][1])
+        imgs, mask = imgs[0], mask[0]   # (D, H, W) each
+        if self._vol_cache_max > 0:
+            imgs.flags.writeable = False   # cache entries are shared views
+            mask.flags.writeable = False
+            self._vol_cache[key] = (imgs, mask)
+            if len(self._vol_cache) > self._vol_cache_max:
+                self._vol_cache.popitem(last=False)
+        return imgs, mask
+
+    def draw_supports(self, idx: int) -> List[int]:
+        """Draw the support picks for episode ``idx`` from the stdlib RNG
+        (the few_shot_reader.py:255-283 sequence). Callers pre-draw all
+        episodes of a pass, as the JAX CLI does."""
+        ci, di = self.indices[idx]
+        pool = [i for i in range(len(self.data_info[ci])) if i != di]
+        return random.choices(pool, k=self.cfg["n_shot"])
+
+    def sample(self, idx: int, picks: Optional[List[int]] = None) -> Episode:
+        ci, di = self.indices[idx]
+        pid = self.data_info[ci][di]["pid"]
+        if picks is None:
+            picks = self.draw_supports(idx)
+        supports = [self.load_image_and_mask(self.data_info[ci][i]["pid"],
+                                             self.classes[ci]) for i in picks]
+        qry_img, qry_mask = self.load_image_and_mask(pid, self.classes[ci])
+        ep = self._assemble_eval(supports, qry_img, qry_mask)
+        return dataclasses.replace(ep, class_id=ci, pid=pid,
+                                   supp_pids=[(ci, i) for i in picks])
+
+    def _assemble_eval(self, supports, qry_img, qry_mask) -> Episode:
+        cfg = self.cfg
+        if cfg.get("use_all_supports", False):
+            raise NotImplementedError("use_all_supports is not ported yet")
+        test_shot = cfg.get("test_shot", cfg["n_shot"])
+        # reference defect replicated: only the last support volume survives
+        # the loop (few_shot_reader.py:521-545)
+        s_img, s_lab = supports[-1]
+
+        nq = qry_img.shape[0]
+        k, supp_idx, edges = slice_bins([s_img.shape[0]], nq, cfg["k"])
+
+        # slice-offset "shots" from the last support
+        shot_imgs, shot_labs = [], []
+        for m in range(test_shot):
+            img_rows, lab_rows = [], []
+            for j in range(k):
+                s, e = int(edges[j]), int(edges[j + 1])
+                offset = 0 if j + m >= k else m
+                si = int(supp_idx[0][j + offset])
+                img_rows.append(np.repeat(s_img[si][None], e - s, axis=0))
+                lab_rows.append(np.repeat(s_lab[si][None], e - s, axis=0))
+            shot_imgs.append(np.concatenate(img_rows, axis=0))
+            shot_labs.append(np.concatenate(lab_rows, axis=0))
+        support_images = np.stack(shot_imgs)       # (shots, Dq, H, W)
+        support_labels = np.stack(shot_labs)
+
+        support_images, support_labels, qry_img, qry_mask = _pad_same_hw(
+            support_images, support_labels, qry_img, qry_mask)
+        return Episode(support_images.astype(np.float32),
+                       support_labels.astype(np.float32),
+                       qry_img.astype(np.float32), qry_mask.astype(np.float32),
+                       -1, "", [])
+
+
+def _pad_same_hw(s_img, s_lab, q_img, q_lab):
+    """Pad support & query to a common (H, W) (few_shot_reader.py:78-106)."""
+    H = max(s_img.shape[-2], q_img.shape[-2])
+    W = max(s_img.shape[-1], q_img.shape[-1])
+
+    def pad_to(a, fill):
+        pads = [(0, 0)] * (a.ndim - 2) + [(0, H - a.shape[-2]), (0, W - a.shape[-1])]
+        return np.pad(a, pads, constant_values=fill)
+
+    return (pad_to(s_img, s_img.min()), pad_to(s_lab, 0),
+            pad_to(q_img, q_img.min()), pad_to(q_lab, 0))

@@ -1,0 +1,104 @@
+"""rpnet_tpu_torch local correlation vs the JAX package.
+
+The port's plain version (what its wrapper runs on CPU tensors) is held
+against the JAX shifted-products ``local_correlation`` and against the TPU
+kernel the port replaces, ``_corr_rot_kernel`` in select mode, run in
+Pallas interpret mode as ``tests/test_ops.py`` runs it. The Hopper kernel
+itself runs only on the card; ``chip_smoke.py`` holds it against the plain
+version there.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rpnet_tpu.ops.correlation import local_correlation as jax_local_correlation
+from rpnet_tpu.ops.pallas.correlation import (local_correlation_pallas_rot,
+                                              rot_to_quirk)
+from rpnet_tpu_torch.ops.correlation import (local_correlation,
+                                             local_correlation_plain)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _inputs(seed, shape=(2, 16, 16, 64)):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(*shape).astype(np.float32),
+            rng.randn(*shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("r", [1, 2, 5])
+def test_plain_matches_jax_local_correlation(r):
+    """Quirk channel order c = dx·d + dy, f32 (atol 1e-5: sums over C=64
+    taken in another order)."""
+    f1, f2 = _inputs(r)
+    ref = np.asarray(jax_local_correlation(jnp.asarray(f1), jnp.asarray(f2), r))
+    out = local_correlation_plain(torch.from_numpy(f1), torch.from_numpy(f2), r)
+    assert out.shape == (2, 16, 16, (2 * r + 1) ** 2) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("r,h_tile", [(2, 8), (5, 16)])
+def test_plain_matches_rot_kernel(r, h_tile):
+    """The ported TPU kernel (interpret mode, f32 out) after its channel
+    permutation back to the quirk order."""
+    f1, f2 = _inputs(10 + r)
+    out128 = local_correlation_pallas_rot(jnp.asarray(f1), jnp.asarray(f2), r,
+                                          h_tile=h_tile, interpret=True,
+                                          out_f32=True)
+    ref = np.asarray(rot_to_quirk(out128, r))
+    out = local_correlation_plain(torch.from_numpy(f1), torch.from_numpy(f2), r)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_plain_bf16_single_rounding_matches_rot_kernel():
+    """bf16 in → bf16 out, the f32 sum rounded once: within one bf16 ulp of
+    the JAX rot kernel's bf16 output (the two sums differ only in order)."""
+    r = 5
+    f1, f2 = _inputs(3)
+    j1 = jnp.asarray(f1).astype(jnp.bfloat16)
+    j2 = jnp.asarray(f2).astype(jnp.bfloat16)
+    ref = np.asarray(rot_to_quirk(local_correlation_pallas_rot(
+        j1, j2, r, h_tile=16, interpret=True), r).astype(jnp.float32))
+    t1 = torch.from_numpy(np.array(j1.astype(jnp.float32))).to(torch.bfloat16)
+    t2 = torch.from_numpy(np.array(j2.astype(jnp.float32))).to(torch.bfloat16)
+    out = local_correlation_plain(t1, t2, r)
+    assert out.dtype == torch.bfloat16
+    out = out.float().numpy()
+    mag = np.maximum(np.abs(out), np.abs(ref))
+    ulp = np.where(mag > 0, 2.0 ** (np.floor(np.log2(np.maximum(mag, 1e-30))) - 7), 0.0)
+    assert np.all(np.abs(out - ref) <= ulp)
+    # and the single rounding is the f32 result rounded once
+    f32 = local_correlation_plain(t1.float(), t2.float(), r)
+    np.testing.assert_array_equal(out, f32.to(torch.bfloat16).float().numpy())
+
+
+def test_wrapper_sends_cpu_tensors_to_plain_version():
+    f1, f2 = _inputs(7, (1, 8, 12, 16))
+    local_correlation.launches = 0
+    a, b = torch.from_numpy(f1), torch.from_numpy(f2)
+    out = local_correlation(a, b, 2)
+    np.testing.assert_array_equal(out.numpy(), local_correlation_plain(a, b, 2).numpy())
+    assert local_correlation.launches == 0
+
+
+def test_wrapper_raises_off_cpu_without_cuda():
+    """A tensor that is not on the CPU never takes the plain version."""
+    a = torch.empty((1, 4, 4, 8), device="meta")
+    with pytest.raises(ValueError):
+        local_correlation(a, a, 1)
+
+
+def test_import_needs_neither_nvcc_nor_triton():
+    code = ("import sys; import rpnet_tpu_torch.ops.correlation, "
+            "rpnet_tpu_torch.ops.kernels as k, rpnet_tpu_torch.models.rpnet; "
+            "assert 'triton' not in sys.modules; assert not k._libs")
+    env = dict(os.environ, PATH="", PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
