@@ -43,8 +43,10 @@ _DEFAULTS: Dict[str, Any] = {
     "test_shot": None,         # defaults to n_shot (few_shot_reader.py:517)
     # --- splits ---
     "data_dir": "",
+    "train_set_name": "split/abd_110_train.csv",
     "eval_set_name": "split/abd_110_test.csv",
     "class_csv_dir": "./split/abd_110_classes",
+    "train_classes": ["Spleen", "Kidney L", "Kidney R"],
     "eval_classes": ["Liver"],
     # --- model (net/model.py:4-7, net/rp_net.py:195-224) ---
     "net": "RP_Net",
@@ -53,6 +55,7 @@ _DEFAULTS: Dict[str, Any] = {
     "unet_normalize_type": "BatchNorm2d",
     "mask_feature_map": "no",
     "use_relation_enc": "relation",
+    "pretrained_path": None,   # not ported (raises when set)
     # --- refinement (net/rp_net.py:201, :281-312; example.yml:107-110) ---
     "n_iter_refinement": 4,
     "n_test_iter_refinement": 10,
@@ -64,6 +67,20 @@ _DEFAULTS: Dict[str, Any] = {
     "reg_affine_iters": 50,    # few_shot_reader.py:159 iters=[50, ...]
     "reg_lr": 0.01,            # few_shot_reader.py:148-149
     "reg_fit_scale": 1,        # fit theta on an image pooled by N (1 = reference-exact)
+    # --- augmentation (example.yml:34,111-114) ---
+    "do_intaug": True,
+    "gamma_range": [0.5, 1.5],
+    # --- training (example.yml:62-73; trainer.py:46-218) ---
+    "batch_size": 4,
+    "optimizer": "Adam",
+    "init_lr": 1e-5,
+    "momentum": 0.9,
+    "weight_decay": 1e-4,
+    "epochs": 100,
+    "epoch_save": 1,
+    "scheduler_step": 30,
+    "loss": "dice_ce",
+    "align_loss_scaler": 1.0,
     # --- eval protocol (test_rpnet.py:112-145) ---
     "n_runs": 5,
     "ckpt": None,

@@ -1,18 +1,19 @@
 """Host (numpy) array transforms of the CT preprocessing chain.
 
 The port's copy of the numpy half of ``rpnet_tpu/core/transforms.py``, cut to
-what the eval sampler runs:
+what the samplers run:
   * ``normalize``       — utils/util.py:455-467 (HU clip + 99.5-percentile clip → [-1,1])
   * ``pad2factor``      — utils/util.py:406-419
   * ``truncate_image``  — dataset/few_shot_reader.py:385-398
   * ``keep_only_annotation_z_slices`` — dataset/few_shot_reader.py:17-24
   * ``crop``            — dataset/few_shot_reader.py:63-75
+  * ``gamma_transform`` — dataset/few_shot_reader.py:201-211 (train only)
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -80,3 +81,18 @@ def crop(img: np.ndarray, mask: np.ndarray, crop_size: Sequence[int],
     img_pad = np.pad(img_crop, pad_width, mode="constant", constant_values=img_pad_value)
     mask_pad = np.pad(mask_crop, pad_width, mode="constant", constant_values=mask_pad_value)
     return img_pad, mask_pad
+
+
+def gamma_transform(img: np.ndarray, gamma_range: Sequence[float],
+                    rng: Optional[np.random.RandomState] = None):
+    """Random gamma jitter on a [-1, 1] image (few_shot_reader.py:201-211);
+    draws one ``rand()`` from ``rng`` or the global numpy stream."""
+    rand = rng.rand() if rng is not None else np.random.rand()
+    img = (img + 1) / 2.0
+    gamma = rand * (gamma_range[1] - gamma_range[0]) + gamma_range[0]
+    cmin = img.min()
+    irange = img.max() - cmin + 1e-5
+    img = img - cmin + 1e-5
+    img = irange * np.power(img * 1.0 / irange, gamma)
+    img = img + cmin
+    return img * 2 - 1

@@ -1,6 +1,6 @@
 """Host-side episodic sampler: volumes → fixed-shape slice episodes.
 
-The port's copy of the eval half of ``rpnet_tpu/episode/sampler.py``
+The port's copy of ``rpnet_tpu/episode/sampler.py``
 (dataset/few_shot_reader.py):
 
   * volume loading + preprocessing  — FewshotVolumeReader.load_image_and_mask
@@ -12,11 +12,15 @@ The port's copy of the eval half of ``rpnet_tpu/episode/sampler.py``
     stream, so a seed draws the same supports in either CLI;
   * slice binning — k evenly spaced support slices matched to query-slice
     bins (few_shot_reader.py:465-545), with the eval-mode ``test_shot``
-    shot-offset expansion.
+    shot-offset expansion;
+  * train-mode augmentation — gamma jitter + random affine + shuffle
+    (few_shot_reader.py:482-515), drawing from stdlib ``random`` and the
+    global numpy stream in the JAX package's order, so both samplers give
+    identical training episodes from one seed. The affine warp is numpy
+    (:func:`warp_affine_nearest`), value for value OpenCV's.
 
-Volumes are read through the port's own NRRD codec. Train-mode assembly,
-the native raw cache and the index-only ``sample_spec`` twin are not ported
-yet (ROADMAP.md).
+Volumes are read through the port's own NRRD codec. The native raw cache
+and the index-only ``sample_spec`` twin are not ported yet (ROADMAP.md).
 
 Reference defects kept as the JAX package keeps them: the eval support loop
 overwrites across supports, so only the LAST sampled support volume is used.
@@ -34,14 +38,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from rpnet_tpu_torch.core import nrrd_io
-from rpnet_tpu_torch.core.transforms import (crop, keep_only_annotation_z_slices,
+from rpnet_tpu_torch.core.transforms import (crop, gamma_transform,
+                                             keep_only_annotation_z_slices,
                                              normalize, pad2factor,
                                              truncate_image)
 
 
 @dataclasses.dataclass
 class Episode:
-    """One eval episode, fixed shapes, slice axis leading, all float32.
+    """One eval or train episode, fixed shapes, slice axis leading, all float32.
 
       support_images: (test_shot, Dq, H, W) in [-1, 1]
       support_labels: (test_shot, Dq, H, W) binary
@@ -79,12 +84,15 @@ def slice_bins(num_support_slices: Sequence[int], num_query_slices: int, k: int)
 
 
 class EpisodeSampler:
-    """Episodic eval dataset over a preprocessed NRRD directory (training
-    episodes are not ported yet)."""
+    """Episodic dataset over a preprocessed NRRD directory; ``mode`` is
+    "eval" (eval_classes) or "train" (train_classes, augmented episodes)."""
 
-    def __init__(self, data_dir: str, set_name: str, config):
+    def __init__(self, data_dir: str, set_name: str, config, mode: str = "eval"):
+        if mode not in ("eval", "train"):
+            raise ValueError(f"mode {mode!r}: 'eval' or 'train'")
         self.data_dir = data_dir
         self.cfg = config
+        self.mode = mode
         self.class_csv_dir = config["class_csv_dir"]
 
         if not set_name.endswith(".csv"):
@@ -93,7 +101,8 @@ class EpisodeSampler:
         names = np.genfromtxt(set_name, dtype=str, delimiter="\n")
         self.filenames = [str(n) for n in np.atleast_1d(names)]
 
-        self.classes = config["eval_classes"]
+        self.classes = (config["train_classes"] if mode == "train"
+                        else config["eval_classes"])
         self._read_data_meta()
         self.indices: List[Tuple[int, int]] = [
             (ci, di) for ci in range(len(self.classes))
@@ -169,7 +178,10 @@ class EpisodeSampler:
         supports = [self.load_image_and_mask(self.data_info[ci][i]["pid"],
                                              self.classes[ci]) for i in picks]
         qry_img, qry_mask = self.load_image_and_mask(pid, self.classes[ci])
-        ep = self._assemble_eval(supports, qry_img, qry_mask)
+        if self.mode == "train":
+            ep = self._assemble_train(supports, qry_img, qry_mask)
+        else:
+            ep = self._assemble_eval(supports, qry_img, qry_mask)
         return dataclasses.replace(ep, class_id=ci, pid=pid,
                                    supp_pids=[(ci, i) for i in picks])
 
@@ -208,6 +220,44 @@ class EpisodeSampler:
                        -1, "", [])
 
 
+    def _assemble_train(self, supports, qry_img, qry_mask) -> Episode:
+        """k support slices per support volume and one random query slice
+        per bin, each gamma-jittered (``do_intaug``, half the time) and
+        randomly warped, then shuffled together."""
+        cfg = self.cfg
+        nq = qry_img.shape[0]
+        k, supp_idx, edges = slice_bins([s[0].shape[0] for s in supports], nq, cfg["k"])
+
+        s_img = np.stack([supports[i][0][supp_idx[i]] for i in range(len(supports))])
+        s_lab = np.stack([supports[i][1][supp_idx[i]] for i in range(len(supports))])
+
+        q_imgs, q_labs = [], []
+        for j in range(k):
+            s, e = int(edges[j]), int(edges[j + 1])
+            ind = random.randint(s, max(e - 1, s))
+            q = qry_img[ind]
+            l = qry_mask[ind]
+            if cfg["do_intaug"] and np.random.randint(2, size=1).item():
+                q = gamma_transform(q, cfg.get("gamma_range", [0.5, 1.5]))
+            q, l = random_affine_2d(q, l)
+            q_imgs.append(q)
+            q_labs.append(l)
+        q_imgs = np.stack(q_imgs)
+        q_labs = np.stack(q_labs)
+
+        shuffle = np.arange(k)
+        np.random.shuffle(shuffle)
+        s_img = s_img[:, shuffle]
+        s_lab = s_lab[:, shuffle]
+        q_imgs = q_imgs[shuffle]
+        q_labs = q_labs[shuffle]
+
+        s_img, s_lab, q_imgs, q_labs = _pad_same_hw(s_img, s_lab, q_imgs, q_labs)
+        return Episode(s_img.astype(np.float32), s_lab.astype(np.float32),
+                       q_imgs.astype(np.float32), q_labs.astype(np.float32),
+                       -1, "", [])
+
+
 def _pad_same_hw(s_img, s_lab, q_img, q_lab):
     """Pad support & query to a common (H, W) (few_shot_reader.py:78-106)."""
     H = max(s_img.shape[-2], q_img.shape[-2])
@@ -219,3 +269,76 @@ def _pad_same_hw(s_img, s_lab, q_img, q_lab):
 
     return (pad_to(s_img, s_img.min()), pad_to(s_lab, 0),
             pad_to(q_img, q_img.min()), pad_to(q_lab, 0))
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: the (2, 3) float64 matrix that rotates by
+    ``angle`` degrees (counter-clockwise) and scales about ``center`` (x, y)."""
+    a = angle * (np.pi / 180)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    cx, cy = center
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def invert_affine(M: np.ndarray) -> np.ndarray:
+    """``cv2.invertAffineTransform`` in float64, OpenCV's operation order."""
+    m = np.asarray(M, np.float64).ravel()
+    D = m[0] * m[4] - m[1] * m[3]
+    D = 1.0 / D if D != 0 else 0.0
+    a11, a22, a12, a21 = m[4] * D, m[0] * D, -m[1] * D, -m[3] * D
+    b1 = -a11 * m[2] - a12 * m[5]
+    b2 = -a21 * m[2] - a22 * m[5]
+    return np.array([[a11, a12, b1], [a21, a22, b2]])
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 fused multiply-add (the product of two float32 is exact in
+    float64; the sum is rounded once more to float32)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def warp_affine_nearest(src: np.ndarray, M: np.ndarray, fill: float = 0.0) -> np.ndarray:
+    """``cv2.warpAffine(src, M, (W, H), flags=INTER_NEAREST, borderValue=fill)``
+    in numpy, for a 2-D float image.
+
+    OpenCV 5 maps output pixel (x, y) through the inverse of M held in
+    float32: the row term ``y·m1 + m2`` is a float32 product and sum, the
+    column term a float32 fused multiply-add ``m0·x + row``; the source pixel
+    is that coordinate rounded half to even, and pixels mapped outside the
+    image take ``fill``. (OpenCV 4's fixed-point coordinates, 10 fractional
+    bits, round differently on about 0.1% of pixels.)
+    """
+    H, W = src.shape
+    m = invert_affine(M).astype(np.float32).ravel()
+    y = np.arange(H, dtype=np.float32)[:, None]
+    x = np.arange(W, dtype=np.float32)[None, :]
+    sx = np.rint(_fma32(m[0], x, y * m[1] + m[2]))
+    sy = np.rint(_fma32(m[3], x, y * m[4] + m[5]))
+    inside = (sx >= 0) & (sx < W) & (sy >= 0) & (sy < H)
+    out = np.full((H, W), fill, dtype=src.dtype)
+    out[inside] = src[sy[inside].astype(np.int64), sx[inside].astype(np.int64)]
+    return out
+
+
+def random_affine_2d(img: np.ndarray, label: np.ndarray,
+                     degrees: float = 5.0, translate: float = 0.2,
+                     scale_range=(0.7, 1.5)):
+    """Train-time random affine (random_transform, few_shot_reader.py:27-47):
+    torchvision RandomAffine semantics with nearest interpolation; empty
+    (fill) pixels take the image minimum (few_shot_reader.py:44). Draws four
+    ``np.random.uniform`` in the JAX package's order."""
+    H, W = img.shape
+    ang = np.random.uniform(-degrees, degrees)
+    tx = np.random.uniform(-translate, translate) * W
+    ty = np.random.uniform(-translate, translate) * H
+    sc = np.random.uniform(*scale_range)
+    M = rotation_matrix_2d((W / 2, H / 2), ang, sc)
+    M[0, 2] += tx
+    M[1, 2] += ty
+    img01 = (img + 1) / 2
+    warped = warp_affine_nearest(img01, M)
+    lab = warp_affine_nearest(label, M)
+    warped[warped == 0] = img01.min()
+    return warped * 2 - 1, lab

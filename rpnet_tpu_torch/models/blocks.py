@@ -8,6 +8,12 @@ returns channels-last output, which the inverse permute turns back into a
 contiguous NHWC tensor. Parameters keep torch's OIHW layout and the upstream
 RP-Net ``state_dict`` names (``conv.0``, ``conv.1``, ``up.1``, ...).
 
+BatchNorm in training mode follows the JAX package (flax ``nn.BatchNorm``
+under the trainer's episode vmap), not ``torch.nn.BatchNorm2d``: batch
+statistics are taken per episode (``groups`` leading blocks of the batch
+axis), the running variance takes the biased batch variance, and the new
+running statistics are the mean over episodes of the per-episode updates.
+
 Initialization: torch's own defaults (Conv2d kaiming_uniform(a=√5), bias
 U(±1/√fan_in); BatchNorm2d ones/zeros, running stats 0/1), the same
 distributions as the JAX package's, drawn from an explicit
@@ -32,10 +38,45 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) on (N, H, W, C) tensors."""
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) on (N, H, W, C) tensors.
+
+    In training mode the batch axis holds ``groups`` episodes, episode-major,
+    and each episode is normalized with its own statistics, as flax's
+    ``nn.BatchNorm(use_running_average=False, momentum=0.9)`` normalizes one
+    vmapped episode (``rpnet_tpu/models/blocks.py:62-74``): biased variance
+    in f32, ``y = x · scale/√(var+eps) + (bias − mean · scale/√(var+eps))``.
+    The running statistics move by ``momentum`` toward the episodes' mean
+    batch statistics; since the update is linear, that equals the JAX
+    trainer's mean over episodes of the per-episode updates
+    (``rpnet_tpu/train/trainer.py:198-203``).
+    """
+
+    groups = 1   # episodes in the batch axis (set by RPNet's training forward)
 
     def forward(self, x):
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if not self.training:
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        N, H, W, C = x.shape
+        xg = x.reshape(self.groups, -1, C)
+        stat_dtype = torch.promote_types(x.dtype, torch.float32)
+        var, mean = torch.var_mean(xg.to(stat_dtype), dim=1, correction=0)   # (E, C)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.mean(0), alpha=m)
+            self.running_var.mul_(1 - m).add_(var.mean(0), alpha=m)
+            self.num_batches_tracked += 1
+        mul = self.weight * torch.rsqrt(var + self.eps)                # (E, C)
+        shift = self.bias - mean * mul
+        y = xg * mul[:, None].to(x.dtype) + shift[:, None].to(x.dtype)
+        return y.reshape(N, H, W, C)
+
+
+def set_episode_groups(module: nn.Module, groups: int) -> None:
+    """Tell every BatchNorm2d under ``module`` that the batch axis holds
+    ``groups`` episodes (training mode)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.groups = groups
 
 
 class UpsampleNearest2x(nn.Module):

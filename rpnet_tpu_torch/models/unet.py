@@ -4,7 +4,9 @@ The counterpart of ``rpnet_tpu/models/unet.py``: a 5-level encoder
 (64→1024 channels, maxpool 2×2) and two decoder stages; the output is the
 'd4' feature map at 1/4 resolution with 256 channels. Module names are the
 upstream U_Net's (``Conv1``..``Conv5``, ``Up5``, ``Up_conv5``, ``Up4``,
-``Up_conv4``). Only ``mask_feature_map: no`` is ported.
+``Up_conv4``). Only ``mask_feature_map: no`` is ported. ``model.train()``
+puts its batch norms in the JAX package's batch-statistics mode
+(``models/blocks.BatchNorm2d``).
 """
 
 from __future__ import annotations

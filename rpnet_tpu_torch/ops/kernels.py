@@ -85,6 +85,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             fn.restype = i
         lib.local_corr_error_string.argtypes = [i]
         lib.local_corr_error_string.restype = ctypes.c_char_p
+    elif name == "local_corr_bwd":
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.local_corr_bwd_f32, lib.local_corr_bwd_bf16):
+            fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+            fn.restype = i
+        lib.local_corr_bwd_error_string.argtypes = [i]
+        lib.local_corr_bwd_error_string.restype = ctypes.c_char_p
 
 
 def launch_local_corr(fm1: torch.Tensor, fm2: torch.Tensor, out: torch.Tensor,
@@ -102,3 +109,23 @@ def launch_local_corr(fm1: torch.Tensor, fm2: torch.Tensor, out: torch.Tensor,
     if err != 0:
         msg = lib.local_corr_error_string(err).decode()
         raise RuntimeError(f"local_corr launch failed: {msg} (cudaError {err})")
+
+
+def launch_local_corr_bwd(g: torch.Tensor, g_pitch: int, fm1: torch.Tensor,
+                          fm2: torch.Tensor, dfm1: torch.Tensor,
+                          dfm2: torch.Tensor, r: int, scale: float) -> None:
+    """Launch the local-correlation backward kernel on the current stream of
+    the tensors' device; g is read with pixel pitch ``g_pitch`` elements. The
+    caller (``ops.correlation.local_correlation_bwd``) has checked device,
+    dtype, shape and strides."""
+    lib = load("local_corr_bwd")
+    fn = (lib.local_corr_bwd_bf16 if fm1.dtype == torch.bfloat16
+          else lib.local_corr_bwd_f32)
+    B, H, W, C = fm1.shape
+    with torch.cuda.device(fm1.device):
+        stream = torch.cuda.current_stream(fm1.device).cuda_stream
+        err = fn(g.data_ptr(), g_pitch, fm1.data_ptr(), fm2.data_ptr(),
+                 dfm1.data_ptr(), dfm2.data_ptr(), B, H, W, C, r, scale, stream)
+    if err != 0:
+        msg = lib.local_corr_bwd_error_string(err).decode()
+        raise RuntimeError(f"local_corr_bwd launch failed: {msg} (cudaError {err})")

@@ -1,11 +1,13 @@
 """rpnet_tpu_torch local correlation vs the JAX package.
 
-The port's plain version (what its wrapper runs on CPU tensors) is held
-against the JAX shifted-products ``local_correlation`` and against the TPU
-kernel the port replaces, ``_corr_rot_kernel`` in select mode, run in
-Pallas interpret mode as ``tests/test_ops.py`` runs it. The Hopper kernel
-itself runs only on the card; ``chip_smoke.py`` holds it against the plain
-version there.
+The port's plain versions (what its wrappers run on CPU tensors) are held
+against the JAX shifted-products ``local_correlation`` and its ``jax.vjp``,
+and against the TPU kernels the port replaces — ``_corr_rot_kernel`` in
+select mode and the backward ``_corr_bwd_kernel`` — run in Pallas interpret
+mode as ``tests/test_ops.py`` runs them. The autograd Function is held
+against torch autograd of the plain forward. The Hopper kernels themselves
+run only on the card; ``chip_smoke.py`` holds them against the plain
+versions there.
 """
 
 import os
@@ -17,11 +19,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from rpnet_tpu.ops.correlation import local_correlation as jax_local_correlation
-from rpnet_tpu.ops.pallas.correlation import (local_correlation_pallas_rot,
+from rpnet_tpu.ops.pallas.correlation import (local_correlation_pallas_bwd,
+                                              local_correlation_pallas_rot,
                                               rot_to_quirk)
 from rpnet_tpu_torch.ops.correlation import (local_correlation,
-                                             local_correlation_plain)
+                                             local_correlation_bwd,
+                                             local_correlation_bwd_plain,
+                                             local_correlation_plain,
+                                             local_correlation_trainable)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -102,3 +110,66 @@ def test_import_needs_neither_nvcc_nor_triton():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _grad_inputs(seed, r, shape=(2, 16, 16, 64)):
+    f1, f2 = _inputs(seed, shape)
+    g = np.random.RandomState(seed + 100).randn(*shape[:3], (2 * r + 1) ** 2)
+    return f1, f2, g.astype(np.float32)
+
+
+@pytest.mark.parametrize("r", [1, 2, 5])
+def test_bwd_plain_matches_jax_vjp(r):
+    """Both input gradients vs jax.vjp of the JAX package's local_correlation,
+    f32 (atol 1e-5: sums over d² shifts in another order)."""
+    f1, f2, g = _grad_inputs(20 + r, r)
+    _, vjp = jax.vjp(lambda a, b: jax_local_correlation(a, b, r),
+                     jnp.asarray(f1), jnp.asarray(f2))
+    ref1, ref2 = vjp(jnp.asarray(g))
+    d1, d2 = local_correlation_bwd_plain(torch.from_numpy(g), torch.from_numpy(f1),
+                                         torch.from_numpy(f2), r)
+    assert d1.dtype == d2.dtype == torch.float32
+    np.testing.assert_allclose(d1.numpy(), np.asarray(ref1), atol=1e-5)
+    np.testing.assert_allclose(d2.numpy(), np.asarray(ref2), atol=1e-5)
+
+
+@pytest.mark.parametrize("r", [1, 2, 5])
+def test_bwd_plain_matches_pallas_bwd_kernel(r):
+    """The ported TPU backward kernel, interpret mode, f32 (atol 1e-5)."""
+    f1, f2, g = _grad_inputs(30 + r, r)
+    ref1, ref2 = local_correlation_pallas_bwd(jnp.asarray(g), jnp.asarray(f1),
+                                              jnp.asarray(f2), r, interpret=True)
+    d1, d2 = local_correlation_bwd_plain(torch.from_numpy(g), torch.from_numpy(f1),
+                                         torch.from_numpy(f2), r)
+    np.testing.assert_allclose(d1.numpy(), np.asarray(ref1), atol=1e-5)
+    np.testing.assert_allclose(d2.numpy(), np.asarray(ref2), atol=1e-5)
+
+
+@pytest.mark.parametrize("r", [1, 2, 5])
+def test_autograd_function_matches_plain_autograd(r):
+    """The Function's gradients through a concat (the CRE's strided g) vs
+    torch autograd of the plain forward (atol 1e-5); one backward call."""
+    f1, f2 = _inputs(40 + r)
+    ct = torch.from_numpy(np.random.RandomState(r).randn(2, 16, 16, (2 * r + 1) ** 2 + 64)
+                          .astype(np.float32))
+    grads = []
+    for corr in (local_correlation_trainable, local_correlation_plain):
+        a = torch.from_numpy(f1).requires_grad_()
+        b = torch.from_numpy(f2).requires_grad_()
+        (torch.cat([corr(a, b, r), a], dim=-1) * ct).sum().backward()
+        grads.append((a.grad.numpy(), b.grad.numpy()))
+    for x, y in zip(*grads):
+        np.testing.assert_allclose(x, y, atol=1e-5)
+
+
+def test_bwd_wrapper_sends_cpu_tensors_to_plain_version_and_raises_otherwise():
+    f1, f2, g = _grad_inputs(9, 1, (1, 6, 7, 16))
+    local_correlation_bwd.launches = 0
+    a, b, gt = torch.from_numpy(f1), torch.from_numpy(f2), torch.from_numpy(g)
+    for x, y in zip(local_correlation_bwd(gt, a, b, 1),
+                    local_correlation_bwd_plain(gt, a, b, 1)):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    assert local_correlation_bwd.launches == 0
+    m = torch.empty((1, 4, 4, 16), device="meta")
+    with pytest.raises(ValueError):
+        local_correlation_bwd(torch.empty((1, 4, 4, 9), device="meta"), m, m, 1)

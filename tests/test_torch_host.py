@@ -1,6 +1,7 @@
 """rpnet_tpu_torch's copies of the JAX package's host modules hold to their
-originals: the synthetic dataset, the NRRD codec, the YAML defaults and the
-eval sampler give identical values from the same inputs and seed."""
+originals: the synthetic dataset, the NRRD codec, the YAML defaults, the
+eval and train samplers and the train-time augmentations give identical
+values from the same inputs and seed."""
 
 import os
 import random
@@ -12,11 +13,14 @@ from rpnet_tpu import config as jax_config
 from rpnet_tpu.core import nrrd_io as jax_nrrd
 from rpnet_tpu.core.synthetic import generate_dataset as jax_generate_dataset
 from rpnet_tpu.episode.sampler import EpisodeSampler as JaxEpisodeSampler
+from rpnet_tpu.episode.sampler import random_affine_2d as jax_random_affine_2d
 from rpnet_tpu.episode.sampler import slice_bins as jax_slice_bins
 from rpnet_tpu_torch import config
 from rpnet_tpu_torch.core import nrrd_io
 from rpnet_tpu_torch.core.synthetic import generate_dataset
-from rpnet_tpu_torch.episode.sampler import EpisodeSampler, slice_bins
+from rpnet_tpu_torch.core.transforms import gamma_transform
+from rpnet_tpu_torch.episode.sampler import (EpisodeSampler, random_affine_2d,
+                                             slice_bins, warp_affine_nearest)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -103,3 +107,62 @@ def test_eval_sampler_matches_jax(datasets, test_shot):
             x, y = getattr(a, name), getattr(b, name)
             assert x.dtype == y.dtype == np.float32
             np.testing.assert_array_equal(x, y, err_msg=f"{j} {name}")
+
+
+def test_train_sampler_matches_jax(datasets):
+    """Train mode from one stdlib + numpy seed: the same supports, query
+    slices, gamma jitter, random affines and shuffles — identical arrays."""
+    _, tp = datasets
+    raw = dict(class_csv_dir=tp["class_dir"], train_classes=["Liver", "Spleen"],
+               num_slice=32, num_x=48, num_y=48, crop_size=[32, 32], k=4,
+               do_intaug=True, use_native_io=False)
+    ours = EpisodeSampler(tp["data_dir"], tp["test_csv"], config.Config(raw), mode="train")
+    ref = JaxEpisodeSampler(tp["data_dir"], tp["test_csv"], jax_config.Config(raw),
+                            mode="train")
+    assert len(ours) == len(ref) == 8
+    episodes = {}
+    for name, sampler in (("ours", ours), ("ref", ref)):
+        random.seed(3)
+        np.random.seed(3)
+        episodes[name] = [sampler.sample(j) for j in range(len(sampler))]
+    for j, (a, b) in enumerate(zip(episodes["ours"], episodes["ref"])):
+        assert (a.class_id, a.pid, a.supp_pids) == (b.class_id, b.pid, b.supp_pids)
+        for name in ("support_images", "support_labels", "query_images",
+                     "query_labels"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert x.dtype == y.dtype == np.float32 and x.shape[-3] == 4
+            np.testing.assert_array_equal(x, y, err_msg=f"{j} {name}")
+
+
+def test_warp_affine_nearest_matches_cv2():
+    """The numpy warp against cv2.warpAffine(INTER_NEAREST) over 400 random
+    affines of the train augmentation's range, square and ragged shapes:
+    no pixel differs."""
+    import cv2
+
+    rng = np.random.RandomState(0)
+    for t in range(400):
+        H, W = [(256, 256), (37, 53), (64, 64), (20, 300)][t % 4]
+        img = rng.rand(H, W).astype(np.float32)
+        M = cv2.getRotationMatrix2D((W / 2, H / 2), rng.uniform(-5, 5), rng.uniform(0.7, 1.5))
+        M[0, 2] += rng.uniform(-0.2, 0.2) * W
+        M[1, 2] += rng.uniform(-0.2, 0.2) * H
+        ref = cv2.warpAffine(img, M, (W, H), flags=cv2.INTER_NEAREST, borderValue=0.0)
+        np.testing.assert_array_equal(warp_affine_nearest(img, M), ref, err_msg=str(t))
+
+
+def test_train_augmentations_match_jax():
+    """random_affine_2d and gamma_transform draw the same numbers from the
+    global numpy stream and give the same images as the JAX package's."""
+    from rpnet_tpu.core.transforms import gamma_transform as jax_gamma
+
+    rng = np.random.RandomState(1)
+    img = np.clip(rng.randn(48, 40) * 0.5, -1, 1).astype(np.float32)
+    lab = (rng.rand(48, 40) > 0.7).astype(np.float32)
+    outs = []
+    for affine, gamma in ((random_affine_2d, gamma_transform),
+                          (jax_random_affine_2d, jax_gamma)):
+        np.random.seed(4)
+        outs.append([gamma(img, [0.5, 1.5]), *affine(img, lab), np.random.rand()])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
