@@ -4,17 +4,24 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code 1, no result line):
-  1. build  — compile every kernel of the eval and training paths from
-     ops/csrc/ (one nvcc per source, all started together) for sm_90a,
-     printing ptxas' register/shared-memory report;
+  1. build  — compile every kernel of the eval and training paths and of the
+     opt-in correlation forwards from ops/csrc/ (one nvcc per source, all
+     started together) for sm_90a, printing ptxas' register/shared-memory
+     report;
   2. kernels — call each kernel's wrapper on the card at the main paths'
-     shapes, the eval shape (32 slices, 64×64, C=256, r=5), the training
-     shape (48 slices, f32) and a ragged edge shape, in bf16 and f32, and
-     hold it against its plain PyTorch version: bf16 within one bf16 ulp of
-     the f32 result (rtol 2**-7, atol 1e-3), f32 within atol 1e-4 (sums in
-     another order); the autograd Function's input gradients against torch
-     autograd of the plain forward (f32, atol 1e-4); time kernels and plain
-     versions with CUDA events;
+     shapes, the eval shape (the first episode's query slices, 64×64,
+     C=256, r=5, bf16), the training shape (48 slices, f32) and a ragged
+     edge shape, and hold it against its plain PyTorch version: bf16 within
+     one bf16 ulp of the f32 result (rtol 2**-7, atol 1e-3), f32 within atol
+     1e-4 (sums in another order); the autograd Function's input gradients
+     against torch autograd of the plain forward (f32, atol 1e-4). The
+     opt-in forwards likewise (``check_variant``): the tensor-core band
+     kernel (RPNET_CORR_IMPL=pallas_mxu), its pdot epilogue
+     (RPNET_ROT_EXTRACT=pdot, bf16, at C=256 — where it also matches the
+     select kernel — and C=48), its packed slice pairs (RPNET_ROT_PACK=1,
+     also with a partner slice 300× larger) and the C-strided kernel
+     (RPNET_CORR_IMPL=csub). Kernels and plain versions are timed with
+     CUDA events;
   3. main path — the port's eval CLI (``rpnet_tpu_torch.cli.test_rpnet``)
      on a synthetic Abd-110-shaped dataset at 272² volumes / 256² crops,
      configured by yamls/example.yml (U-Net d4, r=5, 10 refinement
@@ -22,6 +29,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      kernels' launch counts set to 0 just before and read just after; every
      kernel must have run 11 times per episode (once per support, once per
      refinement iteration), no episode may fail, every Dice must be finite;
+  3b. eval switches — the same CLI, episodes and weights under each opt-in
+     forward (pallas_mxu, csub, pdot, RPNET_ROT_PACK=1): 11 launches per
+     episode of the selected kernel (pack: select for odd slice counts),
+     refinement masks agreeing with phase 3's on > 99.9% of pixels;
   4. reference — the full-width model (random seeded weights, 3 refinement
      iterations) on a small input, f32 with TF32 off, on the card vs on the
      CPU (plain versions): logits within 2e-3, masks agreeing on > 99.9%;
@@ -34,6 +45,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      set to 0 just before and read just after: 5 forward and 5 backward
      correlation launches per step; every loss finite, the parameters
      moved, and the written epoch_000.pth loads into the eval model;
+  5b. training switches — 2 steps of the same CLI from the same seed under
+     pallas_mxu, csub and rot + RPNET_ROT_PACK=1: 5 launches of the selected
+     forward and 5 of the backward per step, the first loss within 1e-3
+     relative of phase 5's;
   6. training reference — one full-width train step (E=2, k=2, 64², SGD at
      lr 1 so the change is the gradient) on the card vs on the CPU, f32 with
      TF32 off: loss within 1e-4 relative, each parameter tensor's change
@@ -60,44 +75,69 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")   # .gitignore lists build/
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM (NVIDIA data sheet)
-PEAK_FLOPS = {"bfloat16": 989e12,          # dense bf16 tensor cores
-              "float32": 67e12}            # f32 outside the tensor cores
+PEAK_FLOPS = {"bf16 tensor cores": 989e12,     # dense (NVIDIA data sheet)
+              "tf32 tensor cores": 494.7e12,   # dense; f32 inputs of the band kernel
+              "f32 FMA": 67e12}                # f32 outside the tensor cores
 N_EVAL_VOLUMES = 4
 N_TRAIN_VOLUMES = 4                        # × 3 train classes = 12 episodes
 TRAIN_EPISODES = 16                        # 4 steps of batch_size 4
 TRAIN_CLASSES = ("Spleen", "Kidney L", "Kidney R")
-KERNELS = ("local_corr", "local_corr_bwd")
+KERNELS = ("local_corr", "local_corr_bwd", "local_corr_band", "local_corr_csub")
+# the wrappers that count their kernel's launches, by the name they report
+WRAPPERS = ("local_correlation", "local_correlation_bwd", "local_correlation_band",
+            "local_correlation_pdot", "local_correlation_packed",
+            "local_correlation_csub")
+# the opt-in forwards: RPNET_* settings → the wrapper that must launch
+EVAL_SWITCHES = {"pallas_mxu": ({"RPNET_CORR_IMPL": "pallas_mxu"}, "local_correlation_band"),
+                 "csub": ({"RPNET_CORR_IMPL": "csub"}, "local_correlation_csub"),
+                 "pdot": ({"RPNET_ROT_EXTRACT": "pdot"}, "local_correlation_pdot"),
+                 "pack": ({"RPNET_ROT_PACK": "1"}, "local_correlation_packed")}
+TRAIN_SWITCHES = {"pallas_mxu": ({"RPNET_CORR_IMPL": "pallas_mxu"}, "local_correlation_band"),
+                  "csub": ({"RPNET_CORR_IMPL": "csub"}, "local_correlation_csub"),
+                  "rot+pack": ({"RPNET_CORR_IMPL": "rot", "RPNET_ROT_PACK": "1"},
+                               "local_correlation_packed")}
+VARIANT_TRAIN_EPISODES = 8                 # 2 steps of batch_size 4
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` CUDA-event-timed runs."""
+def cuda_ms(fn, reps: int, warmup: int = 2, rounds: int = 3) -> float:
+    """Device time of one ``fn()`` in ms: ``reps`` calls back to back between
+    two CUDA events, so the queue stays full and the host's launch time is
+    hidden wherever the device is the slower side (a single timed call would
+    count the device idling while the host enqueues); the median of
+    ``rounds`` such runs."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return sorted(times)[len(times) // 2]
 
 
-def corr_bound(shape, r: int, dtype_name: str, backward: bool = False):
+def corr_bound(shape, r: int, dtype_name: str, backward: bool = False,
+               unit: str = None):
     """Least time (ms) for the local correlation (or its backward) on these
-    inputs: each input read once, each output written once, over the HBM
-    rate; the products that land inside the image (2·C FLOPs each, twice
-    as many for the two gradients) over the dtype's peak."""
+    inputs, what bounds it and the unit it divides by: each input read once,
+    each output written once, over the HBM rate; the products that land
+    inside the image (2·C FLOPs each, twice as many for the two gradients)
+    over the peak of ``unit`` — by default bf16 tensor cores for bf16 and
+    the FP32 units for f32; the f32 band kernel names its TF32 tensor
+    cores. The work is the function's, whatever implements it."""
     B, H, W, C = shape
     itemsize = 2 if dtype_name == "bfloat16" else 4
+    unit = unit or ("bf16 tensor cores" if dtype_name == "bfloat16" else "f32 FMA")
     d = 2 * r + 1
     # forward: fm1, fm2 in, out (d²) out; backward: g (d²), fm1, fm2 in,
     # dfm1, dfm2 out
@@ -108,8 +148,9 @@ def corr_bound(shape, r: int, dtype_name: str, backward: bool = False):
         return sum(min(i + r, n - 1) - max(i - r, 0) + 1 for i in range(n))
 
     flops = (2 if backward else 1) * 2.0 * B * C * valid(H) * valid(W)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[unit]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            unit)
 
 
 def phase_build():
@@ -152,7 +193,7 @@ def check_local_corr(shape, r: int, dtype, seed: int, timed: bool):
     if timed:
         res["ms"] = cuda_ms(lambda: local_correlation(fm1, fm2, r), reps=20)
         res["plain_ms"] = cuda_ms(lambda: local_correlation_plain(fm1, fm2, r), reps=3)
-        res["bound_ms"], res["bound_by"] = corr_bound(shape, r, name)
+        res["bound_ms"], res["bound_by"], res["bound_unit"] = corr_bound(shape, r, name)
     log(f"[kernels] local_correlation {json.dumps(res)} ({tol}: "
         f"{'ok' if ok else 'DISAGREES'})")
     if not ok or not math.isfinite(err):
@@ -192,7 +233,8 @@ def check_local_corr_bwd(shape, r: int, dtype, seed: int, timed: bool):
     if timed:
         res["ms"] = cuda_ms(lambda: local_correlation_bwd(g, fm1, fm2, r), reps=20)
         res["plain_ms"] = cuda_ms(lambda: local_correlation_bwd_plain(g, fm1, fm2, r), reps=3)
-        res["bound_ms"], res["bound_by"] = corr_bound(shape, r, name, backward=True)
+        res["bound_ms"], res["bound_by"], res["bound_unit"] = corr_bound(
+            shape, r, name, backward=True)
     log(f"[kernels] local_correlation_bwd {json.dumps(res)} ({tol}: "
         f"{'ok' if ok else 'DISAGREES'})")
     if not ok or not math.isfinite(err):
@@ -226,6 +268,89 @@ def check_autograd(shape, r: int, seed: int):
         f"{list(shape)} r={r} f32: max |grad diff| {err:.3e} (atol 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"autograd Function gradients disagree: {err}")
+
+
+def check_variant(kind: str, shape, r: int, dtype, seed: int, timed: bool,
+                  partner: float = 1.0):
+    """An opt-in forward's kernel vs its plain version on one input, through
+    the wrapper that launches it: ``band`` and ``pdot`` on (B, H, W, C),
+    ``pack`` on slice pairs packed to (B/2, H, 2W, C) (the second slice of
+    each pair ``partner`` times larger), ``csub`` on (B, H, C, W). Tolerances:
+    f32 atol 1e-4 (times the slice scale² for pack: 3xTF32 products, or f32
+    FMAs, summed in another order); bf16 kernel and plain version both within
+    rtol 2**-7, atol 1e-3 of the f32 sum (one bf16 ulp); pdot both within
+    2**-6 relative, atol 1e-3 of f32(S)·bf16(scale) (its two roundings).
+    Raises on disagreement."""
+    import torch
+
+    from rpnet_tpu_torch.ops import correlation as tc
+
+    B, H, W, C = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fm1 = torch.randn(shape, generator=gen, device="cuda")
+    fm2 = torch.randn(shape, generator=gen, device="cuda")
+    sc = torch.tensor([1.0, partner] * (B // 2) + [1.0] * (B % 2), device="cuda")
+    fm1, fm2 = (x * sc[:, None, None, None] for x in (fm1, fm2))
+    fm1, fm2 = fm1.to(dtype), fm2.to(dtype)
+    if kind == "pack":
+        args = (tc.pack_pairs(fm1), tc.pack_pairs(fm2), r, W)
+        kernel, plain = tc.local_correlation_packed, tc.local_correlation_packed_plain
+        unpack = tc.unpack_pairs
+    elif kind == "csub":
+        args = (fm1.transpose(2, 3).contiguous(), fm2.transpose(2, 3).contiguous(), r)
+        kernel, plain, unpack = tc.local_correlation_csub, tc.local_correlation_csub_plain, None
+    else:
+        args = (fm1, fm2, r)
+        kernel = {"band": tc.local_correlation_band, "pdot": tc.local_correlation_pdot}[kind]
+        plain = {"band": tc.local_correlation_plain, "pdot": tc.local_correlation_pdot_plain}[kind]
+        unpack = None
+    out, ref = kernel(*args), plain(*args)
+    if unpack is not None:
+        out, ref = unpack(out), unpack(ref)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    sums = tc._corr_sums(fm1.float(), fm2.float(), r)
+    name = str(dtype).replace("torch.", "")
+    res = {"shape": list(shape), "r": r, "dtype": name, "max_abs_err": err}
+    if kind == "pdot":
+        scale_bf = float(torch.tensor(tc.correlation_scale(C), dtype=torch.bfloat16))
+        exact = sums * scale_bf
+        ok = all(torch.allclose(x.float(), exact, rtol=2 ** -6, atol=1e-3) for x in (out, ref))
+        tol = "rtol 2**-6, atol 1e-3 of f32(S)*bf16(scale)"
+        res["unequal_to_plain"] = (out != ref).float().mean().item()
+        if C == 256:   # power-of-two scale: the select kernel's value
+            sel = tc.local_correlation(fm1, fm2, r)
+            torch.cuda.synchronize()
+            res["unequal_to_select_kernel"] = (out != sel).float().mean().item()
+            ok = ok and torch.allclose(out.float(), sel.float(), rtol=2 ** -7, atol=1e-3)
+            ok = ok and torch.equal(ref, tc.local_correlation_plain(fm1, fm2, r))
+    elif dtype == torch.bfloat16:
+        f32 = sums * tc.correlation_scale(C)
+        ok = all(torch.allclose(x.float(), f32, rtol=2 ** -7, atol=1e-3) for x in (out, ref))
+        tol = "rtol 2**-7, atol 1e-3 of the f32 sum"
+    else:
+        slice_sq = (sc ** 2)[:, None, None, None]
+        err_scaled = ((out - ref).abs() / slice_sq).max().item()
+        ok = err_scaled <= 1e-4
+        tol = "atol 1e-4" + (" x slice scale²" if partner != 1.0 else "")
+        if kind == "pack":   # the packed function is the unpacked one
+            direct = tc.local_correlation_plain(fm1, fm2, r)
+            ok = ok and ((out - direct).abs() / slice_sq).max().item() <= 1e-4
+    wrapper = kernel.__name__
+    if timed:
+        res["ms"] = cuda_ms(lambda: kernel(*args), reps=20)
+        res["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3)
+        unit = "tf32 tensor cores" if kind in ("band", "pack") and name == "float32" else None
+        res["bound_ms"], res["bound_by"], res["bound_unit"] = corr_bound(shape, r, name,
+                                                                          unit=unit)
+        if kind in ("pack", "csub"):   # with the layout change the route adds
+            fwd = tc.FORWARDS[kind]
+            res["route_ms"] = cuda_ms(lambda: fwd(fm1, fm2, r), reps=20)
+    log(f"[kernels] {wrapper} {json.dumps(res)} ({tol}: {'ok' if ok else 'DISAGREES'})")
+    if not ok or not math.isfinite(err):
+        raise AssertionError(f"{wrapper} kernel disagrees with its plain version at "
+                             f"{shape} r={r} {name}: max err {err}")
+    return res
 
 
 def make_dataset():
@@ -267,39 +392,132 @@ def main_path_slices(cfg):
             for ci, rows in enumerate(s.data_info) for row in rows]
 
 
-def phase_main_path(yaml_path):
+def reset_launches():
+    from rpnet_tpu_torch.ops import correlation as tc
+
+    for name in WRAPPERS:
+        getattr(tc, name).launches = 0
+
+
+def read_launches():
+    from rpnet_tpu_torch.ops import correlation as tc
+
+    return {name: getattr(tc, name).launches for name in WRAPPERS
+            if getattr(tc, name).launches}
+
+
+class switched:
+    """The RPNET_* correlation switches set for a block, then restored."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k, None) for k in
+                      ("RPNET_CORR_IMPL", "RPNET_ROT_EXTRACT", "RPNET_ROT_PACK")}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def run_eval_cli(yaml_path, env=None):
+    """The eval CLI under the switches ``env``, launch counts set to 0 just
+    before and read just after; also records each model call's refinement
+    masks, every iteration, and its first iteration's logits (a global
+    forward hook; the CLI is untouched)."""
     import torch
 
     from rpnet_tpu_torch.cli import test_rpnet
-    from rpnet_tpu_torch.ops.correlation import (local_correlation,
-                                                 local_correlation_bwd)
+    from rpnet_tpu_torch.models.rpnet import RPNet
 
-    local_correlation.launches = 0
-    local_correlation_bwd.launches = 0
-    t0 = time.time()
-    results = test_rpnet.main(["--yaml", yaml_path])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {"local_correlation": local_correlation.launches,
-                "local_correlation_bwd": local_correlation_bwd.launches}
+    masks, logits = [], []
 
+    def hook(module, args, out):
+        if isinstance(module, RPNet):
+            ref = out["refinement"]
+            masks.append((ref[..., 1] > ref[..., 0]).cpu())
+            logits.append(ref[0].float().cpu())
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        with switched(env or {}):
+            reset_launches()
+            t0 = time.time()
+            results = test_rpnet.main(["--yaml", yaml_path])
+            torch.cuda.synchronize()
+            launches = read_launches()
+    finally:
+        handle.remove()
+    results["wall"] = time.time() - t0
     n_eps = results["episodes"]
     if results["failed_episodes"]:
         raise AssertionError(f"{results['failed_episodes']} of {n_eps} episodes failed")
-    if n_eps < 3:
-        raise AssertionError(f"only {n_eps} episodes ran")
     for cls, r in results["classes"].items():
         vals = r["affine"] + r["fewshot"] + [v for mv in r["refinement"].values() for v in mv]
         if len(r["refinement"]) != 10 or not all(math.isfinite(v) for v in vals):
             raise AssertionError(f"{cls}: non-finite or missing Dice {r}")
+    return results, launches, (masks, logits)
+
+
+def phase_main_path(yaml_path):
+    results, launches, outputs = run_eval_cli(yaml_path)
+    n_eps = results["episodes"]
+    if n_eps < 3:
+        raise AssertionError(f"only {n_eps} episodes ran")
+    for cls, r in results["classes"].items():
         log(f"[main] {cls}: dice affine {r['affine'][0]:.4f}, fewshot "
             f"{r['fewshot'][0]:.4f}, ref 9 {r['refinement'][9][0]:.4f}")
-    if launches != {"local_correlation": 11 * n_eps, "local_correlation_bwd": 0}:
+    if launches != {"local_correlation": 11 * n_eps}:
         raise AssertionError(f"correlation launches {launches} in {n_eps} episodes; "
-                             f"expected {11 * n_eps} forward, 0 backward")
+                             f"expected {11 * n_eps} of local_correlation only")
     log(f"[main] {n_eps} episodes, {results['episodes_per_sec']:.3f} episodes/s "
-        f"(first pass, includes warm-up; CLI wall {wall:.1f}s), launches {launches}")
-    return results, launches
+        f"(first pass, includes warm-up; CLI wall {results['wall']:.1f}s), "
+        f"launches {launches}")
+    return results, launches, outputs
+
+
+def phase_eval_switches(yaml_path, dq, default_outputs):
+    """The eval CLI under each opt-in forward, on the main path's episodes and
+    weights: 11 launches per episode of the selected kernel (under pack, the
+    episodes with an odd slice count run select), no failed episode, the
+    refinement masks of every iteration agreeing with the default pass on
+    more than 99.9% of pixels. The first iteration's logits are compared
+    too, as a measurement: the masks of random weights empty out over the
+    iterations, and an empty mask zeroes the correlation's input, so later
+    iterations cannot tell the kernels apart."""
+    default_masks, default_logits = default_outputs
+    out = {}
+    for label, (env, wrapper) in EVAL_SWITCHES.items():
+        results, launches, (masks, logits) = run_eval_cli(yaml_path, env)
+        n_eps = results["episodes"]
+        if label == "pack":
+            expect = {wrapper: 11 * sum(b % 2 == 0 for b in dq[:n_eps]),
+                      "local_correlation": 11 * sum(b % 2 for b in dq[:n_eps])}
+            expect = {k: v for k, v in expect.items() if v}
+        else:
+            expect = {wrapper: 11 * n_eps}
+        if launches != expect:
+            raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+        same = sum(int((a == b).sum()) for a, b in zip(masks, default_masks))
+        total = sum(a.numel() for a in default_masks)
+        agree = same / total
+        fg = sum(int(a.sum()) for a in default_masks) / total
+        dlogit = max(float((a - b).abs().max()) for a, b in zip(logits, default_logits))
+        scale = max(float(b.abs().max()) for b in default_logits)
+        log(f"[eval-{label}] {n_eps} episodes, {results['episodes_per_sec']:.3f} "
+            f"episodes/s (CLI wall {results['wall']:.1f}s), launches {launches}, "
+            f"refinement masks agree with the default pass on {agree:.6f} of {total} "
+            f"pixels (foreground share of the default masks {fg:.4f}); first "
+            f"iteration's logits differ by at most {dlogit:.4g} (largest |logit| "
+            f"{scale:.4g})")
+        if len(masks) != len(default_masks) or not agree > 0.999:
+            raise AssertionError(f"{label}: masks agree on {agree} of the pixels")
+        out[label] = launches
+    return out
 
 
 def make_train_config():
@@ -331,20 +549,16 @@ def phase_training(yaml_path, cfg):
     from rpnet_tpu_torch.cli import train as train_cli
     from rpnet_tpu_torch.config import Config
     from rpnet_tpu_torch.models.factory import build_rpnet
-    from rpnet_tpu_torch.ops.correlation import (local_correlation,
-                                                 local_correlation_bwd)
     from rpnet_tpu_torch.train.convert import load_into, load_torch_checkpoint
 
     torch.cuda.reset_peak_memory_stats()
-    local_correlation.launches = 0
-    local_correlation_bwd.launches = 0
+    reset_launches()
     t0 = time.time()
     res = train_cli.main(["--yaml", yaml_path, "--epochs", "1",
                           "--episodes-per-epoch", str(TRAIN_EPISODES)])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"local_correlation": local_correlation.launches,
-                "local_correlation_bwd": local_correlation_bwd.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     steps = len(res["step_losses"])
@@ -379,6 +593,46 @@ def phase_training(yaml_path, cfg):
     log(f"[train] {res['checkpoint']}: epoch {ckpt['epoch']}, {len(moved)} of "
         f"{len(init)} tensors moved from the init; loads into the eval model")
     return res, launches, peak_gb
+
+
+def phase_train_switches(cfg, default_first_loss: float):
+    """The train CLI for 2 steps under each opt-in forward, from the same
+    seed as the training path: 5 forward launches of the selected kernel and
+    5 of the backward per step, finite losses, and the first step's loss
+    within 1e-3 relative of the default route's."""
+    import torch
+    import yaml
+
+    from rpnet_tpu_torch.cli import train as train_cli
+
+    out = {}
+    for label, (env, wrapper) in TRAIN_SWITCHES.items():
+        vcfg = dict(cfg, out_dir=os.path.join(WORK, f"train_out_{label}"))
+        path = os.path.join(WORK, f"example_train_{label}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(vcfg, f)
+        with switched(env):
+            reset_launches()
+            t0 = time.time()
+            res = train_cli.main(["--yaml", path, "--epochs", "1", "--episodes-per-epoch",
+                                  str(VARIANT_TRAIN_EPISODES)])
+            torch.cuda.synchronize()
+            launches = read_launches()
+        steps = len(res["step_losses"])
+        expect = {wrapper: 5 * steps, "local_correlation_bwd": 5 * steps}
+        first = res["step_losses"][0]
+        rel = abs(first - default_first_loss) / abs(default_first_loss)
+        log(f"[train-{label}] {steps} steps: losses {res['step_losses']} (first vs "
+            f"default route {rel:.2e} relative, limit 1e-3), seconds between steps "
+            f"{res['step_seconds']}, CLI wall {time.time() - t0:.1f}s, launches {launches}")
+        if steps != 2 or launches != expect:
+            raise AssertionError(f"{label}: {steps} steps, launches {launches}, "
+                                 f"expected {expect}")
+        if not (all(math.isfinite(v) for v in res["step_losses"]) and rel <= 1e-3):
+            raise AssertionError(f"{label}: losses {res['step_losses']} vs default "
+                                 f"first loss {default_first_loss}")
+        out[label] = launches
+    return out
 
 
 def profile_train_step(cfg):
@@ -557,50 +811,64 @@ def main() -> int:
     check_autograd((3, 20, 20, 64), 2, seed=10)
     check_autograd((4, 64, 64, 256), 5, seed=11)
 
-    _, launches = phase_main_path(yaml_path)
+    # the opt-in forwards (RPNET_CORR_IMPL / RPNET_ROT_EXTRACT / RPNET_ROT_PACK)
+    eval_shape = (dq[0], 64, 64, 256)
+    even = next((b for b in dq if b % 2 == 0), dq[0] + 1)   # pack takes pairs
+    ragged = (3, 20, 20, 64)
+    variant = {
+        "band": check_variant("band", eval_shape, 5, bf16, seed=12, timed=True),
+        "pdot": check_variant("pdot", eval_shape, 5, bf16, seed=13, timed=True),
+        "pack": check_variant("pack", (even, 64, 64, 256), 5, bf16, seed=14, timed=True),
+        "csub": check_variant("csub", eval_shape, 5, bf16, seed=15, timed=True),
+    }
+    variant_train = {kind: check_variant(kind, train_shape, 5, f32, seed=16 + i, timed=True)
+                     for i, kind in enumerate(("band", "pack", "csub"))}
+    for i, (kind, dtype) in enumerate([(k, t) for k in ("band", "csub") for t in (bf16, f32)]):
+        check_variant(kind, ragged, 2, dtype, seed=20 + i, timed=False)
+    check_variant("pack", (4, 16, 64, 32), 5, f32, seed=24, timed=False, partner=300.0)
+    check_variant("pack", (4, 16, 64, 32), 5, bf16, seed=25, timed=False, partner=30.0)
+    check_variant("pdot", (4, 64, 64, 48), 5, bf16, seed=26, timed=False)
+
+    _, launches, default_outputs = phase_main_path(yaml_path)
+    eval_launches = phase_eval_switches(yaml_path, dq, default_outputs)
     phase_reference()
     train_yaml, train_cfg = make_train_config()
-    _, train_launches, _ = phase_training(train_yaml, train_cfg)
+    train_res, train_launches, _ = phase_training(train_yaml, train_cfg)
+    switch_launches = phase_train_switches(train_cfg, train_res["step_losses"][0])
     profile_train_step(train_cfg)
     phase_train_reference()
 
-    kernels = [{
-        "name": "local_correlation",
-        "route": "cuda",
-        "source": "rpnet_tpu_torch/ops/csrc/local_corr.cu",
-        "replaces": "rpnet_tpu/ops/pallas/correlation.py:289",
-        "launches": launches["local_correlation"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": None,      # no single PyTorch call computes it
-    }, {
-        "name": "local_correlation_train_forward",
-        "route": "cuda",
-        "source": "rpnet_tpu_torch/ops/csrc/local_corr.cu",
-        "replaces": "rpnet_tpu/ops/pallas/correlation.py:36",
-        "launches": train_launches["local_correlation"],
-        "max_abs_err": train_fwd["max_abs_err"],
-        "ms": train_fwd["ms"],
-        "plain_ms": train_fwd["plain_ms"],
-        "bound_ms": train_fwd["bound_ms"],
-        "bound_by": train_fwd["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "local_correlation_bwd",
-        "route": "cuda",
-        "source": "rpnet_tpu_torch/ops/csrc/local_corr_bwd.cu",
-        "replaces": "rpnet_tpu/ops/pallas/correlation.py:776",
-        "launches": train_launches["local_correlation_bwd"],
-        "max_abs_err": train_bwd["max_abs_err"],
-        "ms": train_bwd["ms"],
-        "plain_ms": train_bwd["plain_ms"],
-        "bound_ms": train_bwd["bound_ms"],
-        "bound_by": train_bwd["bound_by"],
-        "library_ms": None,
-    }]
+    def entry(name, source, replaces, res, n_launches):
+        return {"name": name, "route": "cuda",
+                "source": f"rpnet_tpu_torch/ops/csrc/{source}",
+                "replaces": f"rpnet_tpu/ops/pallas/correlation.py:{replaces}",
+                "launches": n_launches, "max_abs_err": res["max_abs_err"],
+                "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "bound_unit": res["bound_unit"],
+                "library_ms": None}      # no single PyTorch call computes it
+
+    def opt_in(wrapper):   # launches over the path runs that select it
+        return sum(run.get(wrapper, 0) for run in
+                   list(eval_launches.values()) + list(switch_launches.values()))
+
+    kernels = [
+        entry("local_correlation", "local_corr.cu", 289, main_case,
+              launches["local_correlation"]),
+        entry("local_correlation_train_forward", "local_corr.cu", 36, train_fwd,
+              train_launches["local_correlation"]),
+        entry("local_correlation_bwd", "local_corr_bwd.cu", 776, train_bwd,
+              train_launches["local_correlation_bwd"]),
+        entry("local_correlation_band", "local_corr_band.cu", 122, variant["band"],
+              opt_in("local_correlation_band")),
+        entry("local_correlation_pdot", "local_corr_band.cu", 289, variant["pdot"],
+              opt_in("local_correlation_pdot")),
+        entry("local_correlation_packed", "local_corr_band.cu", 446, variant["pack"],
+              opt_in("local_correlation_packed")),
+        entry("local_correlation_csub", "local_corr_csub.cu", 198, variant["csub"],
+              opt_in("local_correlation_csub")),
+    ]
+    for kind, res in variant_train.items():
+        log(f"[kernels] training shape, {kind}: {json.dumps(res)}")
     log("kernels " + json.dumps([
         {"name": k["name"], "max_abs_err": k["max_abs_err"], "kernel_ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -13,6 +13,12 @@ submodules are never called and are not built.
 The backward of ``torch.cat([corr, fm1])`` hands the correlation's backward
 its gradient as a strided (B, h, w, d²) view of the (B, h, w, d² + C)
 gradient; the backward kernel reads it with that pixel stride, no copy.
+
+The correlation's forward is resolved per call, from the JAX package's
+``RPNET_CORR_IMPL`` / ``RPNET_ROT_EXTRACT`` / ``RPNET_ROT_PACK`` and the
+module's mode (``self.training`` where the JAX CRE takes ``train``), by
+``ops.correlation.correlation_route``. Every route writes the quirk order,
+so the weights are the same under every switch.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import torch
 from torch import nn
 
 from rpnet_tpu_torch.models.blocks import conv_bn_relu
-from rpnet_tpu_torch.ops.correlation import local_correlation_trainable
+from rpnet_tpu_torch.ops.correlation import (correlation_route,
+                                             local_correlation_trainable)
 
 NUM_FEAT = 64
 
@@ -40,5 +47,6 @@ class ContextCorrelationEncoder(nn.Module):
         """fm1 = fg-masked, fm2 = bg-masked features, (B, h, w, C) each."""
         fm1 = self.w_k(fm1).contiguous()   # no-op when cuDNN kept channels-last
         fm2 = self.w_q(fm2).contiguous()
-        corr = local_correlation_trainable(fm1, fm2, self.radius)   # (B, h, w, (2r+1)²)
+        route = correlation_route(fm1, self.radius, self.training)
+        corr = local_correlation_trainable(fm1, fm2, self.radius, route)   # (B, h, w, (2r+1)²)
         return self.q(torch.cat([corr, fm1], dim=-1))

@@ -23,18 +23,45 @@ The backward, in the gathered form of ``_corr_bwd_kernel``
 summed in float32 and rounded once to the input dtype, has the same pair:
 :func:`local_correlation_bwd_plain` and the wrapper
 :func:`local_correlation_bwd` (``ops/csrc/local_corr_bwd.cu``).
-:class:`LocalCorrelation` is the autograd Function over the two wrappers;
-the CRE calls it through :func:`local_correlation_trainable`.
+:class:`LocalCorrelation` is the autograd Function over a forward wrapper
+and the backward wrapper; the CRE calls it through
+:func:`local_correlation_trainable`.
+
+Opt-in forwards. The JAX package has four more Pallas forwards of the same
+function, chosen by environment variables; the port reads the same
+variables, with the same meaning, in :func:`correlation_route` (once per
+call), and gives each its own Hopper kernel, plain version and wrapper:
+
+* select — ``_corr_rot_kernel`` (select) and ``_corr_kernel``:
+  ``local_corr.cu``, :func:`local_correlation`;
+* band — ``_corr_mxu_kernel`` (``RPNET_CORR_IMPL=pallas_mxu``):
+  ``local_corr_band.cu``, :func:`local_correlation_band`;
+* pdot — ``_corr_rot_kernel`` with ``pdot=True`` (``RPNET_ROT_EXTRACT=pdot``):
+  ``local_corr_band.cu``, :func:`local_correlation_pdot`;
+* pack — ``_corr_rot2_kernel`` (``RPNET_ROT_PACK=1``): ``local_corr_band.cu``,
+  :func:`local_correlation_packed` behind :func:`local_correlation_pack`;
+* csub — ``_corr_csub_kernel`` (``RPNET_CORR_IMPL=csub``):
+  ``local_corr_csub.cu``, :func:`local_correlation_csub`.
+
+Every route returns the quirk order (B, H, W, d²) in fm1's dtype; the TPU's
+rot layout (128 lanes, dy-major, dx reversed) is not carried. ``pdot`` keeps
+its own value contract (two bf16 roundings, :func:`local_correlation_pdot_plain`);
+the others compute the function above. The one backward serves them all.
 """
 
 from __future__ import annotations
+
+import functools
+import os
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 MAX_RADIUS = 5     # the kernel is instantiated for r = 1..5
-CHANNEL_STEP = 16  # channels per staging step of the kernel (CC in the source)
+CHANNEL_STEP = 16  # C must be a multiple (the kernels' channel staging steps)
+CORR_IMPLS = ("pallas", "rot", "pallas_mxu", "csub")   # RPNET_CORR_IMPL values carried
 
 
 def correlation_scale(C: int) -> float:
@@ -42,22 +69,38 @@ def correlation_scale(C: int) -> float:
     return float(np.float32(1.0 / np.sqrt(float(C))))
 
 
-def local_correlation_plain(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
-    """Shifted-products local correlation. fm1, fm2: (B, H, W, C) → (B, H, W, d²)."""
+def _corr_sums(fm1: torch.Tensor, fm2: torch.Tensor, r: int,
+               width: int = 0) -> torch.Tensor:
+    """The unscaled f32 sums (B, H, W, d²) in quirk order. ``width`` > 0
+    reads the W axis as slices of that width side by side: a source column
+    outside the query's own slice counts as zero."""
     B, H, W, C = fm1.shape
     d = 2 * r + 1
     a = fm1.float()
     pad = F.pad(fm2.float(), (0, 0, r, r, r, r))   # zero rows/cols around the image
+    col = torch.arange(W, device=fm1.device) % (width or W)
     out = torch.empty((B, H, W, d * d), dtype=torch.float32, device=fm1.device)
     for dx in range(d):        # horizontal shift — slow axis (reference quirk)
+        src = col + dx - r
+        inside = ((src >= 0) & (src < (width or W)))[:, None]   # (W, 1)
         for dy in range(d):    # vertical shift — fast axis
-            out[..., dx * d + dy] = (a * pad[:, dy:dy + H, dx:dx + W, :]).sum(-1)
-    return (out * correlation_scale(C)).to(fm1.dtype)
+            prod = a * pad[:, dy:dy + H, dx:dx + W, :]
+            if width:
+                prod = torch.where(inside, prod, 0.0)
+            out[..., dx * d + dy] = prod.sum(-1)
+    return out
+
+
+def local_correlation_plain(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
+    """Shifted-products local correlation. fm1, fm2: (B, H, W, C) → (B, H, W, d²)."""
+    return (_corr_sums(fm1, fm2, r) * correlation_scale(fm1.shape[-1])).to(fm1.dtype)
 
 
 def _check_kernel_inputs(name: str, fm1: torch.Tensor, fm2: torch.Tensor,
-                         r: int, max_batch: int) -> None:
-    """Raise unless fm1, fm2 are what the Hopper kernels take."""
+                         r: int, max_batch: int, c_dim: int = 3) -> None:
+    """Raise unless fm1, fm2 are what the Hopper kernels take: channels-last
+    (B, H, W, C), or (B, H, C, W) with ``c_dim`` 2."""
+    layout = "channels-last (B, H, W, C)" if c_dim == 3 else "(B, H, C, W)"
     if fm1.device.type != "cuda" or fm2.device != fm1.device:
         raise ValueError(f"{name}: tensors on {fm1.device} and "
                          f"{fm2.device}; the kernel needs both on one CUDA device")
@@ -66,21 +109,20 @@ def _check_kernel_inputs(name: str, fm1: torch.Tensor, fm2: torch.Tensor,
                          "the kernel takes float32 or bfloat16, the same for both")
     if fm1.dim() != 4 or fm1.shape != fm2.shape:
         raise ValueError(f"{name}: shapes {tuple(fm1.shape)} and "
-                         f"{tuple(fm2.shape)}; the kernel needs equal (B, H, W, C)")
+                         f"{tuple(fm2.shape)}; the kernel needs equal {layout}")
     if not (fm1.is_contiguous() and fm2.is_contiguous()):
-        raise ValueError(f"{name}: the kernel needs contiguous "
-                         "channels-last (B, H, W, C) tensors")
+        raise ValueError(f"{name}: the kernel needs contiguous {layout} tensors")
     if not 1 <= r <= MAX_RADIUS:
         raise ValueError(f"{name}: radius {r} outside the kernel's "
                          f"1..{MAX_RADIUS}")
-    B, H, W, C = fm1.shape
+    B, C = fm1.shape[0], fm1.shape[c_dim]
     if B > max_batch:
         raise ValueError(f"{name}: batch {B} exceeds the kernel's "
                          f"grid ({max_batch})")
     if C % CHANNEL_STEP or fm1.data_ptr() % 16 or fm2.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel reads {CHANNEL_STEP} "
-                         "channels at a time in 16-byte loads; it needs C a "
-                         f"multiple of {CHANNEL_STEP} (got {C}) and 16-byte "
+        raise ValueError(f"{name}: the kernels stage channels in steps of up to "
+                         f"{CHANNEL_STEP} with aligned vector loads; they need C "
+                         f"a multiple of {CHANNEL_STEP} (got {C}) and 16-byte "
                          "aligned tensors")
 
 
@@ -103,6 +145,213 @@ def local_correlation(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Ten
 
 
 local_correlation.launches = 0   # kernel launches (the plain path never counts)
+
+
+def _launch_band(wrapper, mode: str, fm1: torch.Tensor, fm2: torch.Tensor, r: int,
+                 width: int) -> torch.Tensor:
+    """Launch ``local_corr_band.cu`` in ``mode``; counts on ``wrapper``."""
+    from rpnet_tpu_torch.ops import kernels
+
+    B, H, W, C = fm1.shape
+    out = torch.empty((B, H, W, (2 * r + 1) ** 2), dtype=fm1.dtype, device=fm1.device)
+    if out.numel():
+        kernels.launch_local_corr_band(mode, fm1, fm2, out, r, width,
+                                       correlation_scale(C))
+        wrapper.launches += 1
+    return out
+
+
+def local_correlation_band(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
+    """The ``pallas_mxu`` forward: the function of :func:`local_correlation_plain`
+    as a tensor-core band product (``ops/csrc/local_corr_band.cu``) on CUDA
+    tensors; a CPU tensor goes to the plain version."""
+    if fm1.device.type == "cpu" and fm2.device.type == "cpu":
+        return local_correlation_plain(fm1, fm2, r)
+    _check_kernel_inputs("local_correlation_band", fm1, fm2, r, max_batch=65535)
+    return _launch_band(local_correlation_band, "band", fm1, fm2, r, fm1.shape[2])
+
+
+local_correlation_band.launches = 0
+
+
+def _require_bf16(name: str, fm1: torch.Tensor) -> None:
+    if fm1.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: {fm1.dtype} input; the pdot value contract "
+                         "(RPNET_ROT_EXTRACT=pdot) is defined for bfloat16 only")
+
+
+def local_correlation_pdot_plain(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
+    """The TPU pdot extraction's values, bf16 only:
+    ``bf16(f32(bf16(S)) · f32(bf16(scale)))`` with S the f32 channel sum.
+    Its main dot rounds S to bf16 at the output, and the placement matrix
+    holds the scale in bf16 (``_rot_extract_matrix``); one nonzero product
+    per output column makes the second dot exact before its rounding. For a
+    power-of-two scale (C = 4^k) this equals :func:`local_correlation_plain`."""
+    _require_bf16("local_correlation_pdot", fm1)
+    scale = float(torch.tensor(correlation_scale(fm1.shape[-1]), dtype=torch.bfloat16))
+    s = _corr_sums(fm1, fm2, r).to(torch.bfloat16).float()
+    return (s * scale).to(torch.bfloat16)
+
+
+def local_correlation_pdot(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
+    """The ``RPNET_ROT_EXTRACT=pdot`` forward: the band product with the
+    pdot epilogue (``ops/csrc/local_corr_band.cu``) on CUDA tensors; a CPU
+    tensor goes to :func:`local_correlation_pdot_plain`."""
+    if fm1.device.type == "cpu" and fm2.device.type == "cpu":
+        return local_correlation_pdot_plain(fm1, fm2, r)
+    _require_bf16("local_correlation_pdot", fm1)
+    _check_kernel_inputs("local_correlation_pdot", fm1, fm2, r, max_batch=65535)
+    return _launch_band(local_correlation_pdot, "pdot", fm1, fm2, r, fm1.shape[2])
+
+
+local_correlation_pdot.launches = 0
+
+
+def pack_pairs(a: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → (B/2, H, 2W, C): consecutive slices side by side
+    (``_pack_pairs``)."""
+    B, H, W, C = a.shape
+    return a.reshape(B // 2, 2, H, W, C).transpose(1, 2).reshape(B // 2, H, 2 * W, C)
+
+
+def unpack_pairs(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_pairs` (``_unpack_pairs``)."""
+    Bh, H, W2, C = a.shape
+    return a.reshape(Bh, H, 2, W2 // 2, C).transpose(1, 2).reshape(2 * Bh, H, W2 // 2, C)
+
+
+def local_correlation_packed_plain(fm1p: torch.Tensor, fm2p: torch.Tensor, r: int,
+                                   width: int) -> torch.Tensor:
+    """The packed kernel's function on the packed layout (B/2, H, 2W, C):
+    each query correlates with its own slice only; a source column in the
+    partner slice counts as zero (``_corr_rot2_kernel``'s validity mask)."""
+    sums = _corr_sums(fm1p, fm2p, r, width=width)
+    return (sums * correlation_scale(fm1p.shape[-1])).to(fm1p.dtype)
+
+
+def local_correlation_packed(fm1p: torch.Tensor, fm2p: torch.Tensor, r: int,
+                             width: int) -> torch.Tensor:
+    """Slice pairs packed side by side (B/2, H, 2W, C) → (B/2, H, 2W, d²):
+    the band kernel with the partner mask (``ops/csrc/local_corr_band.cu``)
+    on CUDA tensors; a CPU tensor goes to :func:`local_correlation_packed_plain`."""
+    if fm1p.device.type == "cpu" and fm2p.device.type == "cpu":
+        return local_correlation_packed_plain(fm1p, fm2p, r, width)
+    _check_kernel_inputs("local_correlation_packed", fm1p, fm2p, r, max_batch=65535)
+    if fm1p.shape[2] != 2 * width:
+        raise ValueError(f"local_correlation_packed: packed width {fm1p.shape[2]} "
+                         f"is not two slices of {width}")
+    return _launch_band(local_correlation_packed, "pack", fm1p, fm2p, r, width)
+
+
+local_correlation_packed.launches = 0
+
+
+def local_correlation_pack(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
+    """The ``RPNET_ROT_PACK=1`` forward on (B, H, W, C), B even: pack slice
+    pairs, correlate, unpack (the JAX wrapper's ``_pack_pairs`` round trip)."""
+    W = fm1.shape[2]
+    out = local_correlation_packed(pack_pairs(fm1), pack_pairs(fm2), r, W)
+    return unpack_pairs(out)
+
+
+def local_correlation_csub_plain(fm1t: torch.Tensor, fm2t: torch.Tensor, r: int) -> torch.Tensor:
+    """The local correlation on the C-strided layout: fm1t, fm2t (B, H, C, W)
+    → (B, H, W, d²) quirk order in fm1t's dtype."""
+    return local_correlation_plain(fm1t.transpose(2, 3), fm2t.transpose(2, 3), r)
+
+
+def local_correlation_csub(fm1t: torch.Tensor, fm2t: torch.Tensor, r: int) -> torch.Tensor:
+    """The ``csub`` kernel (``ops/csrc/local_corr_csub.cu``) on the layout of
+    ``_corr_csub_kernel``: fm1t, fm2t (B, H, C, W), W contiguous →
+    (B, H, W, d²). A CPU tensor goes to :func:`local_correlation_csub_plain`;
+    a CUDA tensor in any other layout raises."""
+    if fm1t.device.type == "cpu" and fm2t.device.type == "cpu":
+        return local_correlation_csub_plain(fm1t, fm2t, r)
+    _check_kernel_inputs("local_correlation_csub", fm1t, fm2t, r, max_batch=65535,
+                         c_dim=2)
+    B, H, C, W = fm1t.shape
+    if W % 4:
+        raise ValueError(f"local_correlation_csub: the kernel reads 4 columns at a "
+                         f"time; it needs W a multiple of 4 (got {W})")
+    from rpnet_tpu_torch.ops import kernels
+
+    out = torch.empty((B, H, W, (2 * r + 1) ** 2), dtype=fm1t.dtype, device=fm1t.device)
+    if out.numel() == 0:
+        return out
+    kernels.launch_local_corr_csub(fm1t, fm2t, out, r, correlation_scale(C))
+    local_correlation_csub.launches += 1
+    return out
+
+
+local_correlation_csub.launches = 0
+
+
+def _csub_forward(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, H, W, C) → the csub kernel's (B, H, C, W), as the JAX wrapper
+    transposes before its kernel."""
+    return local_correlation_csub(fm1.transpose(2, 3).contiguous(),
+                                  fm2.transpose(2, 3).contiguous(), r)
+
+
+FORWARDS = {"select": local_correlation, "band": local_correlation_band,
+            "pdot": local_correlation_pdot, "pack": local_correlation_pack,
+            "csub": _csub_forward}
+
+
+@functools.lru_cache(maxsize=None)
+def _warn_pdot_ignored(reason: str) -> None:
+    warnings.warn(f"RPNET_ROT_EXTRACT=pdot requested but ignored: {reason}; "
+                  "falling back to the select extraction.", stacklevel=3)
+
+
+def correlation_route(fm1: torch.Tensor, r: int, training: bool) -> str:
+    """The forward the JAX package would run for this call, a key of
+    :data:`FORWARDS`. Resolved per call from the JAX package's variables:
+
+    * ``RPNET_CORR_IMPL``: unset, ``pallas``, ``rot``, ``pallas_mxu`` or
+      ``csub`` (``rpnet_tpu/models/cre.py:72-79``, ``local_correlation_auto``);
+      ``pallas_mxu`` → band, ``csub`` → csub in either mode. The rot family
+      runs in eval when the variable is unset or ``rot``, and in training
+      under ``rot`` (``_rot_quirk``), and needs W + 2r ≤ 128 and d² ≤ 128:
+      unset, eval falls back to select; ``rot`` raises, as the JAX kernel
+      does. Everything else is select.
+    * In the rot family (``local_correlation_pallas_rot``):
+      ``RPNET_ROT_PACK=1`` with B even and 2W = 128 → pack; else
+      ``RPNET_ROT_EXTRACT=pdot`` with bf16 → pdot (warned once when set but
+      shadowed by pack or given f32); else select.
+
+    The JAX package's other values (``xla``, ``mxu``, ``fake``) are XLA
+    formulations or a timing stub, not kernels; they raise here.
+    """
+    impl = os.environ.get("RPNET_CORR_IMPL")
+    if impl is not None and impl not in CORR_IMPLS:
+        raise ValueError(f"RPNET_CORR_IMPL={impl!r}: the port carries "
+                         f"{', '.join(CORR_IMPLS)} (or unset)")
+    if impl == "pallas_mxu":
+        return "band"
+    if impl == "csub":
+        return "csub"
+    if impl != "rot" and (impl is not None or training):
+        return "select"
+    B, H, W, C = fm1.shape
+    d = 2 * r + 1
+    if W + 2 * r > 128 or d * d > 128:
+        if impl == "rot":
+            raise ValueError("RPNET_CORR_IMPL=rot: the rotate variant assumes "
+                             f"W+2r <= 128 and (2r+1)² <= 128 (W={W}, r={r})")
+        return "select"
+    pack = B % 2 == 0 and 2 * W == 128 and os.environ.get("RPNET_ROT_PACK", "0") == "1"
+    pdot_asked = os.environ.get("RPNET_ROT_EXTRACT", "") == "pdot"
+    if pack:
+        if pdot_asked:
+            _warn_pdot_ignored("RPNET_ROT_PACK=1 takes precedence")
+        return "pack"
+    if pdot_asked:
+        if fm1.dtype == torch.bfloat16:
+            return "pdot"
+        _warn_pdot_ignored("output dtype is f32 (the bf16-width value "
+                           "contract does not hold)")
+    return "select"
 
 
 def local_correlation_bwd_plain(g: torch.Tensor, fm1: torch.Tensor,
@@ -170,25 +419,26 @@ local_correlation_bwd.launches = 0
 
 
 class LocalCorrelation(torch.autograd.Function):
-    """Differentiable local correlation: :func:`local_correlation` forward,
-    :func:`local_correlation_bwd` backward (the ``custom_vjp`` of
-    ``pallas_correlation_trainable``). Episodes folded into the batch axis
-    make one launch each way per call."""
+    """Differentiable local correlation: the forward of ``route`` (a key of
+    :data:`FORWARDS`), :func:`local_correlation_bwd` backward (the
+    ``custom_vjp`` of ``pallas_correlation_trainable(forward=...)``, whose
+    backward is the same for every forward). Episodes folded into the batch
+    axis make one launch each way per call."""
 
     @staticmethod
-    def forward(ctx, fm1, fm2, r: int):
+    def forward(ctx, fm1, fm2, r: int, route: str = "select"):
         ctx.save_for_backward(fm1, fm2)
         ctx.r = r
-        return local_correlation(fm1, fm2, r)
+        return FORWARDS[route](fm1, fm2, r)
 
     @staticmethod
     def backward(ctx, g):
         fm1, fm2 = ctx.saved_tensors
         dfm1, dfm2 = local_correlation_bwd(g, fm1, fm2, ctx.r)
-        return dfm1, dfm2, None
+        return dfm1, dfm2, None, None
 
 
 def local_correlation_trainable(fm1: torch.Tensor, fm2: torch.Tensor,
-                                r: int) -> torch.Tensor:
-    """:func:`local_correlation` with the kernel backward under autograd."""
-    return LocalCorrelation.apply(fm1, fm2, r)
+                                r: int, route: str = "select") -> torch.Tensor:
+    """The forward of ``route`` with the kernel backward under autograd."""
+    return LocalCorrelation.apply(fm1, fm2, r, route)

@@ -92,6 +92,22 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             fn.restype = i
         lib.local_corr_bwd_error_string.argtypes = [i]
         lib.local_corr_bwd_error_string.restype = ctypes.c_char_p
+    elif name == "local_corr_band":
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.local_corr_band_f32, lib.local_corr_band_bf16,
+                   lib.local_corr_pack_f32, lib.local_corr_pack_bf16,
+                   lib.local_corr_pdot_bf16):
+            fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+            fn.restype = i
+        lib.local_corr_band_error_string.argtypes = [i]
+        lib.local_corr_band_error_string.restype = ctypes.c_char_p
+    elif name == "local_corr_csub":
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.local_corr_csub_f32, lib.local_corr_csub_bf16):
+            fn.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, p]
+            fn.restype = i
+        lib.local_corr_csub_error_string.argtypes = [i]
+        lib.local_corr_csub_error_string.restype = ctypes.c_char_p
 
 
 def launch_local_corr(fm1: torch.Tensor, fm2: torch.Tensor, out: torch.Tensor,
@@ -129,3 +145,44 @@ def launch_local_corr_bwd(g: torch.Tensor, g_pitch: int, fm1: torch.Tensor,
     if err != 0:
         msg = lib.local_corr_bwd_error_string(err).decode()
         raise RuntimeError(f"local_corr_bwd launch failed: {msg} (cudaError {err})")
+
+
+def launch_local_corr_band(mode: str, fm1: torch.Tensor, fm2: torch.Tensor,
+                           out: torch.Tensor, r: int, width: int,
+                           scale: float) -> None:
+    """Launch the tensor-core band kernel in ``mode`` ``band``, ``pack``
+    (slices of ``width`` columns side by side) or ``pdot`` (bf16) on the
+    current stream of the tensors' device. The callers in ``ops.correlation``
+    have checked device, dtype, shape and contiguity."""
+    lib = load("local_corr_band")
+    bf16 = fm1.dtype == torch.bfloat16
+    fn = {("band", False): lib.local_corr_band_f32, ("band", True): lib.local_corr_band_bf16,
+          ("pack", False): lib.local_corr_pack_f32, ("pack", True): lib.local_corr_pack_bf16,
+          ("pdot", True): lib.local_corr_pdot_bf16}[(mode, bf16)]
+    B, H, W, C = fm1.shape
+    with torch.cuda.device(fm1.device):
+        stream = torch.cuda.current_stream(fm1.device).cuda_stream
+        err = fn(fm1.data_ptr(), fm2.data_ptr(), out.data_ptr(),
+                 B, H, W, C, r, width, scale, stream)
+    if err != 0:
+        msg = lib.local_corr_band_error_string(err).decode()
+        raise RuntimeError(f"local_corr_band ({mode}) launch failed: {msg} "
+                           f"(cudaError {err})")
+
+
+def launch_local_corr_csub(fm1t: torch.Tensor, fm2t: torch.Tensor,
+                           out: torch.Tensor, r: int, scale: float) -> None:
+    """Launch the C-strided kernel on (B, H, C, W) inputs on the current
+    stream of the tensors' device. The caller
+    (``ops.correlation.local_correlation_csub``) has checked the layout."""
+    lib = load("local_corr_csub")
+    fn = (lib.local_corr_csub_bf16 if fm1t.dtype == torch.bfloat16
+          else lib.local_corr_csub_f32)
+    B, H, C, W = fm1t.shape
+    with torch.cuda.device(fm1t.device):
+        stream = torch.cuda.current_stream(fm1t.device).cuda_stream
+        err = fn(fm1t.data_ptr(), fm2t.data_ptr(), out.data_ptr(),
+                 B, H, W, C, r, scale, stream)
+    if err != 0:
+        msg = lib.local_corr_csub_error_string(err).decode()
+        raise RuntimeError(f"local_corr_csub launch failed: {msg} (cudaError {err})")
