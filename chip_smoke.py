@@ -7,11 +7,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
   1. build  — compile every kernel of the eval and training paths and of the
      opt-in correlation forwards from ops/csrc/ (one nvcc per source, all
      started together) for sm_90a, printing ptxas' register/shared-memory
-     report;
+     report and the bf16 forward's design, shared memory and blocks an SM;
   2. kernels — call each kernel's wrapper on the card at the main paths'
      shapes, the eval shape (the first episode's query slices, 64×64,
-     C=256, r=5, bf16), the training shape (48 slices, f32) and a ragged
-     edge shape, and hold it against its plain PyTorch version: bf16 within
+     C=256, r=5, bf16), the training shape (48 slices, f32) and the bf16
+     forward's tiling edges in both dtypes (ragged 20×20, W past one
+     64-query strip, C=48 and C=320, r = 1, 2, 3, 5), and hold it against
+     its plain PyTorch version: bf16 within
      one bf16 ulp of the f32 result (rtol 2**-7, atol 1e-3), f32 within atol
      1e-4 (sums in another order); the autograd Function's input gradients
      against torch autograd of the plain forward (f32, atol 1e-4). The
@@ -76,8 +78,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")   # .gitignore lists build/
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {"bf16 tensor cores": 989e12,     # dense (NVIDIA data sheet)
-              "tf32 tensor cores": 494.7e12,   # dense; f32 inputs of the band kernel
-              "f32 FMA": 67e12}                # f32 outside the tensor cores
+              "tf32 tensor cores": 494.7e12}   # dense; f32 as three passes (3xTF32)
 N_EVAL_VOLUMES = 4
 N_TRAIN_VOLUMES = 4                        # × 3 train classes = 12 episodes
 TRAIN_EPISODES = 16                        # 4 steps of batch_size 4
@@ -126,18 +127,18 @@ def cuda_ms(fn, reps: int, warmup: int = 2, rounds: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def corr_bound(shape, r: int, dtype_name: str, backward: bool = False,
-               unit: str = None):
+def corr_bound(shape, r: int, dtype_name: str, backward: bool = False):
     """Least time (ms) for the local correlation (or its backward) on these
     inputs, what bounds it and the unit it divides by: each input read once,
     each output written once, over the HBM rate; the products that land
     inside the image (2·C FLOPs each, twice as many for the two gradients)
-    over the peak of ``unit`` — by default bf16 tensor cores for bf16 and
-    the FP32 units for f32; the f32 band kernel names its TF32 tensor
-    cores. The work is the function's, whatever implements it."""
+    over the fastest unit that keeps the dtype's accuracy — bf16 tensor
+    cores for bf16, three TF32 tensor-core passes (3xTF32) for f32. One
+    number per function, shape and dtype, whatever implements it."""
     B, H, W, C = shape
     itemsize = 2 if dtype_name == "bfloat16" else 4
-    unit = unit or ("bf16 tensor cores" if dtype_name == "bfloat16" else "f32 FMA")
+    unit = "bf16 tensor cores" if dtype_name == "bfloat16" else "tf32 tensor cores"
+    passes = 1 if dtype_name == "bfloat16" else 3
     d = 2 * r + 1
     # forward: fm1, fm2 in, out (d²) out; backward: g (d²), fm1, fm2 in,
     # dfm1, dfm2 out
@@ -147,7 +148,7 @@ def corr_bound(shape, r: int, dtype_name: str, backward: bool = False,
     def valid(n):   # Σ over positions of the in-image shifts
         return sum(min(i + r, n - 1) - max(i - r, 0) + 1 for i in range(n))
 
-    flops = (2 if backward else 1) * 2.0 * B * C * valid(H) * valid(W)
+    flops = passes * (2 if backward else 1) * 2.0 * B * C * valid(H) * valid(W)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[unit]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             unit)
@@ -164,6 +165,11 @@ def phase_build():
     for k in KERNELS:
         kernels.load(k)
     log(f"[build] {', '.join(KERNELS)} built for sm_90a in {time.time() - t0:.2f}s")
+    plan = kernels.local_corr_bf16_plan(256, 5)
+    log(f"[build] local_corr.cu bf16 design: TMA + wgmma (m64n32k16, one producer warp, "
+        f"four consumer warpgroups, fm1 in registers), {plan['smem_bytes']} bytes of shared memory a block, "
+        f"{plan['stages']} ring stages, {plan['blocks_per_sm']} block(s) an SM at C=256 r=5; "
+        "f32: FP32 FMA body")
 
 
 def check_local_corr(shape, r: int, dtype, seed: int, timed: bool):
@@ -340,9 +346,7 @@ def check_variant(kind: str, shape, r: int, dtype, seed: int, timed: bool,
     if timed:
         res["ms"] = cuda_ms(lambda: kernel(*args), reps=20)
         res["plain_ms"] = cuda_ms(lambda: plain(*args), reps=3)
-        unit = "tf32 tensor cores" if kind in ("band", "pack") and name == "float32" else None
-        res["bound_ms"], res["bound_by"], res["bound_unit"] = corr_bound(shape, r, name,
-                                                                          unit=unit)
+        res["bound_ms"], res["bound_by"], res["bound_unit"] = corr_bound(shape, r, name)
         if kind in ("pack", "csub"):   # with the layout change the route adds
             fwd = tc.FORWARDS[kind]
             res["route_ms"] = cuda_ms(lambda: fwd(fm1, fm2, r), reps=20)
@@ -801,8 +805,14 @@ def main() -> int:
     main_case = check_local_corr((dq[0], 64, 64, 256), 5, bf16, seed=1, timed=True)
     check_local_corr((32, 64, 64, 256), 5, bf16, seed=2, timed=True)
     check_local_corr((32, 64, 64, 256), 5, f32, seed=3, timed=True)
-    check_local_corr((3, 20, 20, 64), 2, bf16, seed=4, timed=False)
-    check_local_corr((3, 20, 20, 64), 2, f32, seed=5, timed=False)
+    # the bf16 kernel's tiling edges: W past one 64-query strip, C not a
+    # multiple of its 64-channel chunk, C past the 256 it keeps resident,
+    # ragged 20x20, every radius class
+    edges = [((3, 20, 20, 64), 2), ((2, 40, 100, 128), 5), ((1, 6, 72, 48), 5),
+             ((3, 20, 20, 64), 1), ((3, 20, 20, 64), 3), ((2, 16, 64, 320), 5)]
+    for i, (shape, r) in enumerate(edges):
+        for j, dtype in enumerate((bf16, f32)):
+            check_local_corr(shape, r, dtype, seed=30 + 2 * i + j, timed=False)
     train_shape = (4 * int(cfg["k"]), 64, 64, 256)    # E·k slices of the train step
     train_fwd = check_local_corr(train_shape, 5, f32, seed=6, timed=True)
     train_bwd = check_local_corr_bwd(train_shape, 5, f32, seed=7, timed=True)

@@ -2,44 +2,87 @@
 // (sm_90a). Plain C entry points, built by rpnet_tpu_torch/ops/kernels.py
 // with nvcc and loaded with ctypes.
 //
-// Replaces: rpnet_tpu/ops/pallas/correlation.py::_corr_rot_kernel (select
-// mode), the TPU kernel that local_correlation_pallas_rot launches on the
-// eval path. It computes what that kernel computes, in the order the
-// consumer (the CRE's 1x1 conv) wants, with none of the TPU layout devices
-// (column-reversed fm2, 128-lane pad, dy-major dx-reversed channels):
+// Replaces two TPU kernels of rpnet_tpu/ops/pallas/correlation.py that
+// compute one function: _corr_rot_kernel in select mode (the eval path,
+// bf16) and _corr_kernel (the training forward, f32). It computes what they
+// compute, in the order the consumer (the CRE's 1x1 conv) wants, with none
+// of the TPU layout devices (column-reversed fm2, 128-lane pad, dy-major
+// dx-reversed channels):
 //
 //   out[b,y,x,dx*d+dy] = cast(scale * sum_c f32(fm1[b,y,x,c])
 //                                         * f32(fm2[b,y+dy-r,x+dx-r,c]))
 //
 // d = 2r+1, zero outside the image, f32 accumulation, one rounding to the
-// input dtype (bf16 on the eval path, f32 under compute_dtype: float32).
+// input dtype.
 //
-// Bound at the eval shape (B=32 slices, 64x64, C=256, r=5, bf16): the
-// function reads fm1 and fm2 once (2 x 67.1 MB) and writes 31.7 MB, 166 MB
-// in all, about 50 us at the H100 SXM's 3.35 TB/s. It does 8.1 GFLOP: about
-// 8 us on bf16 tensor cores, but about 120 us on the FP32 FMA units this
-// kernel uses, so it is arithmetic-bound near 120 us; the memory bound of
-// about 50 us is the floor a tensor-core version could approach. The eval
-// main path launches it 11 times per episode (once per support, once per
-// refinement iteration).
+// bf16 (local_corr_bf16): TMA staging and wgmma band products.
+//   Bound at the eval shape (26 slices, 64x64, C=256, r=5): the function
+//   reads fm1 and fm2 once (2 x 54.5 MB) and writes 25.8 MB, 40 us at the
+//   H100 SXM's 3.35 TB/s; its 6.1 GFLOP of in-image products take 6 us on
+//   bf16 tensor cores. So it is memory-bound. What the design has to keep
+//   down is what each block pulls through L2 (every fm2 row is needed by
+//   2r+1 query rows), and the tensor work it wastes on products outside the
+//   band, which must stay below the memory time.
+//   Products. A block owns QR = 4 query rows and a 64-query strip of one
+//   image. The TPU kernel's row-against-row product becomes, for each
+//   source row s (y0-r .. y0+3+r) and each 16-query sub-strip j, one wgmma
+//   product D[64 x 32] = A[64 x C] * B[32 x C]^T: A's 64 rows are the
+//   sub-strip's 16 queries of all 4 query rows, B's 32 rows the source
+//   columns x0+16j-r .. x0+16j-r+31 of row s. Element (query row q, query
+//   m, column n) is the product at dy = s-(y0+q)+r, dx = n-m; the epilogue
+//   keeps those with both in [0, d). That wastes 32/11 in columns and 14/11
+//   in rows (3.7x, about 24 GFLOP at the eval shape), against 7.3x for a
+//   64 x 80 product per query row.
+//   Loads. Operands reach shared memory by TMA only, in 128-byte channel
+//   chunks (64 bf16) with the 128-byte swizzle the wgmma descriptors name;
+//   NHWC is K-major for both operands as it is. Boxes that reach outside
+//   the image or past C arrive zero-filled, which replaces every halo
+//   predicate; source rows wholly outside the image are skipped (their
+//   band is written as zeros). fm2 streams one source row's chunk (80
+//   columns, 10 KB) per stage through a ring of mbarrier-guarded stages.
+//   Roles. One producer warp: its thread 0 issues every TMA load. Four
+//   consumer warpgroups, one per sub-strip; warp w of a warpgroup owns query
+//   row y0 + w in the epilogue. For C <= 256 each warpgroup loads its
+//   sub-strip's fm1 once (staged over ring stages 3.., then freed) into
+//   registers with ldmatrix (64 registers a thread) and issues its products
+//   with A in registers: the SM then reads only B from shared memory (16 KB
+//   a stage instead of 48), and the ring gets the 160 KB fm1 would have
+//   held (16 stages at r=5). For C > 256 fm1's chunk rides in each stage
+//   beside fm2's and A is read from shared memory (3 stages; more L2
+//   traffic, same products). 17 warps put 5 on one SM sub-partition, which
+//   caps registers at 96 a thread: at C=256 ptxas spills 96 bytes and
+//   serializes the products. Versions without the spill (no producer warp,
+//   thread 0 loading from the product loop) measured slower; PERF.md has
+//   the readings.
+//   Epilogue. Each warpgroup releases a stage as soon as the products that
+//   read it retire; after each source row it writes its band, scaled and
+//   rounded once, into a (4, 64, d^2) output tile in shared memory, which
+//   the block stores in contiguous 16-byte runs at the end. Per block that
+//   is 128 KB of fm1 and 14 x 40 KB of fm2 through L2 (286 MB at the eval
+//   shape, against 0.8 GB for the band kernel). A wait on a barrier that
+//   never completes traps instead of hanging the card.
 //
-// Design (simple and right first): one block per (image, 4-row x 32-column
-// output tile). Channels are staged through shared memory 16 at a time as
-// f32: the fm1 tile and fm2's haloed (4+2r) x (32+2r) slab, channel-major,
-// with an odd slab row pitch so that a warp's 32 reads (8 column groups x 4
-// shifts dy) fall on 32 different banks. Global memory is read in 16-byte
-// loads (one pixel's 16 channels are 32 or 64 contiguous bytes), and the
-// loads of the next 16 channels are issued before the current ones are used,
-// so their latency hides behind the FMAs. Thread (column group, dy, row)
-// owns one vertical shift dy and 4 adjacent output pixels; it keeps the
-// 4 x d sums in registers and reads each slab value once for up to 4 FMAs
-// (register blocking along x). Tensor cores and TMA are later work.
+// f32 (local_corr_f32): FP32 FMAs. Bound at the training shape (48 slices,
+//   C=256, r=5): 498 MB, 149 us at 3.35 TB/s; three TF32 passes of its
+//   11.2 GFLOP take 68 us, so it is memory-bound too, but on the FP32 FMA
+//   units this body uses the same work takes 167 us. Design: one block per
+//   (image, 4-row x 32-column output tile); channels staged through shared
+//   memory 16 at a time as f32 (the fm1 tile and fm2's haloed slab,
+//   channel-major, odd slab pitch for the banks), fetched with 16-byte loads
+//   one step ahead; thread (column group, dy, row) keeps 4 x d sums in
+//   registers (register blocking along x).
 
+#include <cuda.h>   // CUtensorMap and its enums only: the driver entry point
+                    // is fetched at run time, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: FP32 FMA body
+// ---------------------------------------------------------------------------
 
 constexpr int TY = 4;        // output rows per block
 constexpr int P = 4;         // adjacent output columns per thread
@@ -47,36 +90,21 @@ constexpr int XG = 8;        // column groups per block
 constexpr int TX = P * XG;   // output columns per block
 constexpr int CC = 16;       // channels staged per step; C must be a multiple
 
-// The V = 16 / sizeof(T) channels of one 16-byte load, as f32.
 __device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
   f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
 }
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {   // bf16 is the high half of an f32
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even, as XLA's convert
-}
-
-template <typename T, int R>
+template <int R>
 __global__ void __launch_bounds__((2 * R + 1) * XG * TY)
-local_corr_kernel(const T* __restrict__ fm1, const T* __restrict__ fm2,
-                  T* __restrict__ out, int H, int W, int C, float scale) {
+local_corr_fma_kernel(const float* __restrict__ fm1, const float* __restrict__ fm2,
+                      float* __restrict__ out, int H, int W, int C, float scale) {
   constexpr int D = 2 * R + 1;
   constexpr int SR = TY + 2 * R;           // slab rows
   constexpr int SC = TX + 2 * R;           // slab columns
   constexpr int SP = SC + 1;               // slab row pitch, odd (banks)
   constexpr int NT = D * XG * TY;          // threads per block
-  constexpr int V = 16 / sizeof(T);        // channels per 16-byte load
+  constexpr int V = 4;                     // channels per 16-byte load
   constexpr int PARTS = CC / V;            // 16-byte loads per pixel and step
   constexpr int U1 = TY * TX * PARTS;      // loads of the fm1 tile per step
   constexpr int U = U1 + SR * SC * PARTS;  // ... and of the fm2 slab
@@ -177,40 +205,434 @@ local_corr_kernel(const T* __restrict__ fm1, const T* __restrict__ fm2,
   for (int p = 0; p < P; ++p) {
     const int x = x0 + xg * P + p;
     if (x < W) {
-      T* o = out + (img + static_cast<size_t>(y) * W + x) * (D * D) + dy;
+      float* o = out + (img + static_cast<size_t>(y) * W + x) * (D * D) + dy;
 #pragma unroll
-      for (int dx = 0; dx < D; ++dx) o[dx * D] = from_f32<T>(acc[p][dx] * scale);
+      for (int dx = 0; dx < D; ++dx) o[dx * D] = acc[p][dx] * scale;
     }
   }
 }
 
-template <typename T, int R>
-cudaError_t launch(const void* fm1, const void* fm2, void* out, int B, int H,
-                   int W, int C, float scale, cudaStream_t stream) {
+template <int R>
+cudaError_t launch_fma(const void* fm1, const void* fm2, void* out, int B, int H,
+                       int W, int C, float scale, cudaStream_t stream) {
   const dim3 block(XG, 2 * R + 1, TY);
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  local_corr_kernel<T, R><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(fm1), static_cast<const T*>(fm2),
-      static_cast<T*>(out), H, W, C, scale);
+  local_corr_fma_kernel<R><<<grid, block, 0, stream>>>(
+      static_cast<const float*>(fm1), static_cast<const float*>(fm2),
+      static_cast<float*>(out), H, W, C, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* fm1, const void* fm2, void* out, int B, int H, int W,
-             int C, int r, float scale, void* stream) {
-  // 16-byte loads of CC-channel steps: aligned inputs, C a multiple of CC
-  if (C % CC != 0 || reinterpret_cast<uintptr_t>(fm1) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(fm2) % 16 != 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (r) {
-    case 1: return launch<T, 1>(fm1, fm2, out, B, H, W, C, scale, s);
-    case 2: return launch<T, 2>(fm1, fm2, out, B, H, W, C, scale, s);
-    case 3: return launch<T, 3>(fm1, fm2, out, B, H, W, C, scale, s);
-    case 4: return launch<T, 4>(fm1, fm2, out, B, H, W, C, scale, s);
-    case 5: return launch<T, 5>(fm1, fm2, out, B, H, W, C, scale, s);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int QR = 4;                  // query rows per block, one per warp of a warpgroup
+constexpr int SUB = 16;                // queries per sub-strip
+constexpr int NSUB = 4;                // sub-strips per block, one per consumer warpgroup
+constexpr int TXW = SUB * NSUB;        // queries per block and row
+constexpr int NB = 32;                 // source columns per product (16 + 2r <= 32)
+constexpr int SCOLS = TXW - SUB + NB;  // staged source columns x0-r .. x0-r+79
+constexpr int CK = 64;                 // channels per chunk: one 128-byte swizzle row
+constexpr int ROWB = 128;              // shared bytes per staged pixel and chunk
+constexpr int A_BYTES = QR * SUB * ROWB;   // one sub-strip's fm1 chunk, 8 KB
+constexpr int B_BYTES = SCOLS * ROWB;      // one source row's fm2 chunk, 10 KB
+constexpr int MAX_REG_CHUNKS = 4;      // fm1 held in registers for C <= 256
+constexpr int FM1_AT = 3;              // fm1 is staged over the ring from this stage on
+constexpr int MAX_STAGES = 20;
+constexpr int NCONS = 128 * NSUB;      // four consumer warpgroups
+constexpr int NTC = NCONS + 32;        // + one producer warp
+constexpr int SMEM_LIMIT = 232448;     // a block's shared memory on the H100
+constexpr int STATIC_RESERVE = 1024;   // the barriers (static shared memory)
+constexpr int ALIGN = 1024;            // the 128-byte swizzle repeats every 1 KB
+
+struct Plan {
+  int nk;        // channel chunks
+  int reg_nk;    // = nk when fm1 is held in registers (C <= 256), else 0
+  int nstage;    // ring stages
+  int stage_bytes, out_bytes, smem;
+};
+
+Plan make_plan(int C, int r) {
+  Plan p;
+  const int dd = (2 * r + 1) * (2 * r + 1);
+  p.nk = (C + CK - 1) / CK;
+  p.reg_nk = p.nk <= MAX_REG_CHUNKS ? p.nk : 0;
+  p.stage_bytes = B_BYTES + (p.reg_nk ? 0 : NSUB * A_BYTES);
+  p.out_bytes = (QR * TXW * dd * 2 + 15) / 16 * 16;
+  const int avail = SMEM_LIMIT - STATIC_RESERVE - ALIGN - p.out_bytes;
+  p.nstage = avail / p.stage_bytes < MAX_STAGES ? avail / p.stage_bytes : MAX_STAGES;
+  p.smem = ALIGN + p.nstage * p.stage_bytes + p.out_bytes;
+  if (p.reg_nk && p.nstage * B_BYTES < FM1_AT * B_BYTES + p.nk * NSUB * A_BYTES)
+    p.nstage = 0;   // fm1 must fit over the ring's stages FM1_AT..
+  return p;
+}
+
+struct Args {
+  int H, W, C, r, nk, nstage;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` has completed. A wait that never
+// ends (a fault in the schedule) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (n > (1u << 24)) __trap();
   }
+}
+
+// 4-d TMA load of box (c, x, y, b) of `map` into shared `dst`, completion
+// reported on `bar` (out-of-bounds elements arrive as zeros)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c,
+                                         int x, int y, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(x), "r"(y), "r"(b),
+        "r"(bar)
+      : "memory");
+}
+
+// four 8x8 b16 matrices from shared memory, one row address a lane
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), leading
+// offset unused for this layout (1)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WGMMA_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WGMMA_D16_ARGS(d)                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),      \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// D[64 x 32] (+)= A[64 x 16] * B[32 x 16]^T, bf16 in, f32 accumulators,
+// accumulate = 0 overwrites D. A from shared memory (ss) or registers (rs).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D16_ARGS(d) : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&fa)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : WGMMA_D16_ARGS(d)
+      : "r"(fa[0]), "r"(fa[1]), "r"(fa[2]), "r"(fa[3]), "l"(db), "r"(accumulate));
+}
+
+// REG_NK > 0: C <= 64*REG_NK, each consumer warpgroup holds its sub-strip's
+// fm1 in registers (staged once over ring stages FM1_AT..). REG_NK = 0:
+// C > 256, fm1's chunk rides in every stage and is read from shared memory.
+template <int REG_NK>
+__global__ void __launch_bounds__(NTC, 1)
+local_corr_tc_kernel(const __grid_constant__ CUtensorMap map1,
+                     const __grid_constant__ CUtensorMap map2,
+                     __nv_bfloat16* __restrict__ out, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES],
+      fm1_ready[MAX_REG_CHUNKS], fm1_free;
+
+  const int D = 2 * a.r + 1, DD = D * D;
+  const int x0 = blockIdx.x * TXW, y0 = blockIdx.y * QR, b = blockIdx.z;
+  const int nj = min(NSUB, (a.W - x0 + SUB - 1) / SUB);   // sub-strips inside the image
+  // source rows y0-r .. y0+QR-1+r; those inside the image are s_lo .. s_hi
+  const int s_lo = max(0, y0 - a.r), s_hi = min(a.H - 1, y0 + QR - 1 + a.r);
+  const int stage_bytes = B_BYTES + (REG_NK ? 0 : NSUB * A_BYTES);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring_s = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  const uint32_t fm1_s = ring_s + FM1_AT * B_BYTES;   // REG_NK > 0: staged once
+  const uint32_t out_s = ring_s + a.nstage * stage_bytes;
+  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem_raw + (out_s - raw));
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.nstage; ++i) {
+      mbar_init(smem_u32(&full[i]), 1);
+      mbar_init(smem_u32(&empty[i]), NCONS / 32);   // one arrival per consumer warp
+    }
+    for (int k = 0; k < MAX_REG_CHUNKS; ++k) mbar_init(smem_u32(&fm1_ready[k]), 1);
+    mbar_init(smem_u32(&fm1_free), NCONS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the role as a value ptxas can see is warp-uniform (a branch on
+  // threadIdx alone reads as divergent, and wgmmas under it serialize)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == NSUB) {
+    // ---- producer: one thread issues every TMA load of the block ----
+    if (threadIdx.x == NCONS) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map1)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map2)) : "memory");
+      if (REG_NK) {
+        for (int k = 0; k < REG_NK; ++k) {
+          const uint32_t bar = smem_u32(&fm1_ready[k]);
+          mbar_expect_tx(bar, nj * A_BYTES);
+          for (int j = 0; j < nj; ++j)
+            tma_load(fm1_s + (k * NSUB + j) * A_BYTES, &map1, k * CK, x0 + SUB * j, y0, b, bar);
+        }
+      }
+      bool fm1_gone = REG_NK == 0;
+      int stage = 0, phase = 0;
+      for (int s = s_lo; s <= s_hi; ++s) {   // rows outside the image: nothing to load
+        for (int k = 0; k < a.nk; ++k) {
+          if (!fm1_gone && stage == FM1_AT) {   // every warp holds its fm1 fragments
+            mbar_wait(smem_u32(&fm1_free), 0);
+            fm1_gone = true;
+          }
+          mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+          const uint32_t bar = smem_u32(&full[stage]);
+          const uint32_t st = ring_s + stage * stage_bytes;
+          mbar_expect_tx(bar, B_BYTES + (REG_NK ? 0 : nj * A_BYTES));
+          tma_load(st, &map2, k * CK, x0 - a.r, s, b, bar);
+          if (!REG_NK)
+            for (int j = 0; j < nj; ++j)
+              tma_load(st + B_BYTES + j * A_BYTES, &map1, k * CK, x0 + SUB * j, y0, b, bar);
+          if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup `role` computes sub-strip j = role; its warp w
+  // the query row y0 + w. Every wgmma is issued on a path all 128 threads of
+  // the warpgroup take (ptxas serializes them otherwise): a sub-strip past
+  // the image edge, or channels past C, are computed on stale data or zeros
+  // and dropped.
+  const int j = role, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  uint32_t fa[REG_NK ? REG_NK * 4 : 1][4];   // A fragments, one set per 16-channel step
+  if constexpr (REG_NK > 0) {
+    // ldmatrix.x4 lane l addresses row 16w + l%8 + 8*((l/8)&1), 16-byte
+    // chunk 2*kk + l/16: the four 8x8 blocks of the fragment's 16 x 16
+    const int row = 16 * w + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int k = 0; k < REG_NK; ++k) {
+      mbar_wait(smem_u32(&fm1_ready[k]), 0);
+      const uint32_t tile = fm1_s + (k * NSUB + j) * A_BYTES + row * ROWB;
+#pragma unroll
+      for (int kk = 0; kk < CK / 16; ++kk)
+        ldmatrix_x4(fa[k * 4 + kk], tile + (((2 * kk + (lane >> 4)) ^ (row & 7)) << 4));
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&fm1_free));
+  }
+
+  float acc[16];
+  // the band of source row s for query row y0 + w: accumulator element t is
+  // (query m, column n) with m = lane/4 + 8*((t>>1)&1), n = 8*(t>>2) +
+  // 2*(lane%4) + (t&1), displacement dx = n - m
+  auto band = [&](int s, bool zero) {
+    const int dy = s - (y0 + w) + a.r;
+    if (dy < 0 || dy >= D || j >= nj) return;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      const int m = (lane >> 2) + 8 * ((t >> 1) & 1);
+      const int dx = 8 * (t >> 2) + 2 * (lane & 3) + (t & 1) - m;
+      if (dx >= 0 && dx < D)
+        so[(w * TXW + SUB * j + m) * DD + dx * D + dy] =
+            __float2bfloat16(zero ? 0.f : acc[t] * a.scale);
+    }
+  };
+  for (int s = y0 - a.r; s < y0 + QR + a.r; ++s)
+    if (s < s_lo || s > s_hi) band(s, true);   // zero outside the image
+
+  int stage = 0, phase = 0, prev = -1;
+  // one stage: channel chunk k of source row s
+  auto step = [&](int k) {
+    mbar_wait(smem_u32(&full[stage]), phase);
+    const uint32_t st = ring_s + stage * stage_bytes;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      const uint64_t db = wgmma_desc(st + j * SUB * ROWB + kk * 32);
+      if constexpr (REG_NK > 0)
+        wgmma_rs(acc, fa[k * 4 + kk], db, (k | kk) != 0);
+      else
+        wgmma_ss(acc, wgmma_desc(st + B_BYTES + j * A_BYTES + kk * 32), db, (k | kk) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's products have retired
+    fence_acc(acc);
+    if (prev >= 0 && lane == 0) mbar_arrive(smem_u32(&empty[prev]));
+    prev = stage;
+    if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+  };
+  for (int s = s_lo; s <= s_hi; ++s) {
+    if constexpr (REG_NK > 0) {
+#pragma unroll
+      for (int k = 0; k < REG_NK; ++k) step(k);
+    } else {
+      for (int k = 0; k < a.nk; ++k) step(k);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(smem_u32(&empty[prev]));
+    prev = -1;
+    band(s, false);
+  }
+
+  // every consumer warp's band is in the tile: store each query row's run
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory");
+  const int nq = min(TXW, a.W - x0);
+  for (int q = 0; q < QR; ++q) {
+    const int y = y0 + q;
+    if (y >= a.H) break;
+    __nv_bfloat16* dst = out + ((static_cast<size_t>(b) * a.H + y) * a.W + x0) * DD;
+    const __nv_bfloat16* src = so + q * TXW * DD;
+    const int n = nq * DD;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {   // W % 8 == 0: 16-byte runs
+      const int nv = n / 8;
+      for (int e = threadIdx.x; e < nv; e += NCONS)
+        reinterpret_cast<uint4*>(dst)[e] = reinterpret_cast<const uint4*>(src)[e];
+      done = nv * 8;
+    }
+    for (int e = done + threadIdx.x; e < n; e += NCONS) dst[e] = src[e];
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the NHWC bf16 tensor as a 4-d map (C, W, H, B), boxes of 64 channels x
+// bw columns x bh rows of one image, 128-byte swizzle, zeros out of bounds
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int bw,
+                int bh) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t pix = static_cast<cuuint64_t>(C) * 2;
+  const cuuint64_t strides[3] = {pix, pix * W, pix * W * H};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(CK), static_cast<cuuint32_t>(bw),
+                             static_cast<cuuint32_t>(bh), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+typedef void (*TcKernel)(CUtensorMap, CUtensorMap, __nv_bfloat16*, Args);
+
+// the kernel instance for a plan, its dynamic shared memory allowed
+template <int REG_NK>
+cudaError_t tc_kernel(const Plan& p, TcKernel* fn) {
+  static int allowed = 0;   // above 48 KB needs the opt-in, once per size
+  *fn = local_corr_tc_kernel<REG_NK>;
+  if (p.smem <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      local_corr_tc_kernel<REG_NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e == cudaSuccess) allowed = p.smem;
+  return e;
+}
+
+cudaError_t select_kernel(const Plan& p, TcKernel* fn) {
+  if (p.nstage < 2) return cudaErrorInvalidValue;
+  switch (p.reg_nk) {
+    case 1: return tc_kernel<1>(p, fn);
+    case 2: return tc_kernel<2>(p, fn);
+    case 3: return tc_kernel<3>(p, fn);
+    case 4: return tc_kernel<4>(p, fn);
+    default: return tc_kernel<0>(p, fn);
+  }
+}
+
+cudaError_t launch_tc(const void* fm1, const void* fm2, void* out, int B, int H, int W,
+                      int C, int r, float scale, cudaStream_t stream) {
+  const Plan p = make_plan(C, r);
+  TcKernel fn;
+  cudaError_t e = select_kernel(p, &fn);
+  if (e != cudaSuccess) return e;
+  CUtensorMap map1, map2;
+  if (!encode_map(&map1, fm1, B, H, W, C, SUB, QR) ||
+      !encode_map(&map2, fm2, B, H, W, C, SCOLS, 1))
+    return cudaErrorInvalidValue;
+  const Args a{H, W, C, r, p.nk, p.nstage, scale};
+  const dim3 grid((W + TXW - 1) / TXW, (H + QR - 1) / QR, B);
+  fn<<<grid, NTC, p.smem, stream>>>(map1, map2, static_cast<__nv_bfloat16*>(out), a);
+  return cudaGetLastError();
+}
+
+bool valid_inputs(const void* fm1, const void* fm2, int B, int H, int W, int C, int r) {
+  // 16-byte loads / TMA boxes: aligned inputs, C a multiple of CC
+  return C > 0 && C % CC == 0 && B >= 1 && B <= 65535 && H >= 1 && H <= 65535 * QR &&
+         W >= 1 && r >= 1 && r <= 5 && reinterpret_cast<uintptr_t>(fm1) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(fm2) % 16 == 0;
 }
 
 }  // namespace
@@ -220,13 +642,35 @@ int dispatch(const void* fm1, const void* fm2, void* out, int B, int H, int W,
 extern "C" int local_corr_f32(const void* fm1, const void* fm2, void* out,
                               int B, int H, int W, int C, int r, float scale,
                               void* stream) {
-  return dispatch<float>(fm1, fm2, out, B, H, W, C, r, scale, stream);
+  if (!valid_inputs(fm1, fm2, B, H, W, C, r)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 1: return launch_fma<1>(fm1, fm2, out, B, H, W, C, scale, s);
+    case 2: return launch_fma<2>(fm1, fm2, out, B, H, W, C, scale, s);
+    case 3: return launch_fma<3>(fm1, fm2, out, B, H, W, C, scale, s);
+    case 4: return launch_fma<4>(fm1, fm2, out, B, H, W, C, scale, s);
+    default: return launch_fma<5>(fm1, fm2, out, B, H, W, C, scale, s);
+  }
 }
 
 extern "C" int local_corr_bf16(const void* fm1, const void* fm2, void* out,
                                int B, int H, int W, int C, int r, float scale,
                                void* stream) {
-  return dispatch<__nv_bfloat16>(fm1, fm2, out, B, H, W, C, r, scale, stream);
+  if (!valid_inputs(fm1, fm2, B, H, W, C, r)) return cudaErrorInvalidValue;
+  return launch_tc(fm1, fm2, out, B, H, W, C, r, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 design's shared memory a block (bytes), ring stages and blocks an
+// SM at (C, r); returns a cudaError_t.
+extern "C" int local_corr_bf16_plan(int C, int r, int* smem, int* stages,
+                                    int* blocks_per_sm) {
+  const Plan p = make_plan(C, r);
+  *smem = p.smem;
+  *stages = p.nstage;
+  TcKernel fn;
+  const cudaError_t e = select_kernel(p, &fn);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, NTC, p.smem);
 }
 
 extern "C" const char* local_corr_error_string(int err) {

@@ -83,6 +83,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.local_corr_f32, lib.local_corr_bf16):
             fn.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, p]
             fn.restype = i
+        lib.local_corr_bf16_plan.argtypes = [i, i, p, p, p]
+        lib.local_corr_bf16_plan.restype = i
         lib.local_corr_error_string.argtypes = [i]
         lib.local_corr_error_string.restype = ctypes.c_char_p
     elif name == "local_corr_bwd":
@@ -125,6 +127,19 @@ def launch_local_corr(fm1: torch.Tensor, fm2: torch.Tensor, out: torch.Tensor,
     if err != 0:
         msg = lib.local_corr_error_string(err).decode()
         raise RuntimeError(f"local_corr launch failed: {msg} (cudaError {err})")
+
+
+def local_corr_bf16_plan(C: int, r: int) -> Dict[str, int]:
+    """The bf16 kernel's launch plan at (C, r): shared memory a block
+    (bytes), ring stages and resident blocks an SM (the CUDA occupancy
+    calculator)."""
+    lib = load("local_corr")
+    out = [ctypes.c_int() for _ in range(3)]
+    err = lib.local_corr_bf16_plan(C, r, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        msg = lib.local_corr_error_string(err).decode()
+        raise RuntimeError(f"local_corr_bf16_plan failed: {msg} (cudaError {err})")
+    return dict(zip(("smem_bytes", "stages", "blocks_per_sm"), (v.value for v in out)))
 
 
 def launch_local_corr_bwd(g: torch.Tensor, g_pitch: int, fm1: torch.Tensor,

@@ -22,7 +22,8 @@ import torch
 import jax
 
 from rpnet_tpu.ops.correlation import local_correlation as jax_local_correlation
-from rpnet_tpu.ops.pallas.correlation import (local_correlation_pallas_bwd,
+from rpnet_tpu.ops.pallas.correlation import (local_correlation_pallas,
+                                              local_correlation_pallas_bwd,
                                               local_correlation_pallas_rot,
                                               rot_to_quirk)
 from rpnet_tpu_torch.ops.correlation import (local_correlation,
@@ -84,6 +85,50 @@ def test_plain_bf16_single_rounding_matches_rot_kernel():
     # and the single rounding is the f32 result rounded once
     f32 = local_correlation_plain(t1.float(), t2.float(), r)
     np.testing.assert_array_equal(out, f32.to(torch.bfloat16).float().numpy())
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each element's magnitude (0 where it is 0)."""
+    mag = np.abs(x)
+    return np.where(mag > 0, 2.0 ** (np.floor(np.log2(np.maximum(mag, 1e-30))) - 7), 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 6, 72, 48), (1, 4, 100, 80)])
+def test_plain_at_the_kernel_tiling_edges(shape, dtype):
+    """The card's yardstick where the bf16 kernel's tiling changes: W past
+    one 64-query strip and not a multiple of it, C not a multiple of its
+    64-channel chunk, r=5. Held against the JAX package's local_correlation
+    and both TPU kernels local_corr.cu replaces, in interpret mode:
+    ``_corr_rot_kernel`` (select) and ``_corr_kernel``. f32 within atol
+    1e-5 (sums in another order); bf16 is the f32 sum rounded once, within
+    one bf16 ulp of each reference."""
+    r = 5
+    f1, f2 = _inputs(60 + shape[2], shape)
+    j1 = jnp.asarray(f1).astype(dtype)
+    j2 = jnp.asarray(f2).astype(dtype)
+    w1, w2 = j1.astype(jnp.float32), j2.astype(jnp.float32)   # the values, in f32
+    t1 = torch.from_numpy(np.array(w1)).to(getattr(torch, dtype))
+    t2 = torch.from_numpy(np.array(w2)).to(getattr(torch, dtype))
+    out = local_correlation_plain(t1, t2, r)
+    assert out.dtype == t1.dtype and out.shape == shape[:3] + ((2 * r + 1) ** 2,)
+    out = out.float().numpy()
+    refs = {
+        "xla": np.asarray(jax_local_correlation(w1, w2, r)),
+        "select": np.asarray(rot_to_quirk(local_correlation_pallas_rot(
+            j1, j2, r, h_tile=shape[1], interpret=True, out_f32=True), r)),
+        "corr_kernel": np.asarray(local_correlation_pallas(
+            j1, j2, r, interpret=True).astype(jnp.float32)),
+    }
+    if dtype == "float32":
+        for name, ref in refs.items():
+            np.testing.assert_allclose(out, ref, atol=1e-5, err_msg=name)
+    else:
+        f32 = local_correlation_plain(t1.float(), t2.float(), r)
+        np.testing.assert_array_equal(out, f32.to(torch.bfloat16).float().numpy())
+        for name, ref in refs.items():
+            assert np.all(np.abs(out - ref) <= _bf16_ulp(np.maximum(np.abs(out), np.abs(ref)))
+                          + 1e-6), name
 
 
 def test_wrapper_sends_cpu_tensors_to_plain_version():
