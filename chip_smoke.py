@@ -23,7 +23,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      select kernel — and C=48), its packed slice pairs (RPNET_ROT_PACK=1,
      also with a partner slice 300× larger) and the C-strided kernel
      (RPNET_CORR_IMPL=csub). Kernels and plain versions are timed with
-     CUDA events;
+     CUDA events (``rpnet_tpu_torch.utils.timing.cuda_ms``);
+  2b. sweep kernels — the kernel sweep's own two kernels
+     (``rpnet_tpu_torch.bench_tools.corr_sweep``: corr_swapped, planar f32
+     with dx outermost, and corr_rotmxu, the per-column band product with
+     128 zero-padded lanes or d²) against their plain versions at the
+     sweep shape (32×64×64×256, r=5; f32 and bf16, every h_tile instance,
+     both full_lanes and both out_f32) and at the edge shapes where
+     H + 2r <= 128, on outputs the caching allocator had filled with NaN;
+  2c. the kernel sweep — ``corr_sweep.main()`` at 32×64×64×256, r=5, with
+     the launch counts set to 0 just before and read just after: no line
+     FAILED or missed its tolerance, and each kernel launched as often as
+     its lines call it;
   3. main path — the port's eval CLI (``rpnet_tpu_torch.cli.test_rpnet``)
      on a synthetic Abd-110-shaped dataset at 272² volumes / 256² crops,
      configured by yamls/example.yml (U-Net d4, r=5, 10 refinement
@@ -83,11 +94,14 @@ N_EVAL_VOLUMES = 4
 N_TRAIN_VOLUMES = 4                        # × 3 train classes = 12 episodes
 TRAIN_EPISODES = 16                        # 4 steps of batch_size 4
 TRAIN_CLASSES = ("Spleen", "Kidney L", "Kidney R")
-KERNELS = ("local_corr", "local_corr_bwd", "local_corr_band", "local_corr_csub")
+KERNELS = ("local_corr", "local_corr_bwd", "local_corr_band", "local_corr_csub",
+           "local_corr_sweep")
 # the wrappers that count their kernel's launches, by the name they report
 WRAPPERS = ("local_correlation", "local_correlation_bwd", "local_correlation_band",
             "local_correlation_pdot", "local_correlation_packed",
             "local_correlation_csub")
+# the kernel sweep's own two, in rpnet_tpu_torch.bench_tools.corr_sweep
+SWEEP_WRAPPERS = ("corr_swapped", "corr_rotmxu")
 # the opt-in forwards: RPNET_* settings → the wrapper that must launch
 EVAL_SWITCHES = {"pallas_mxu": ({"RPNET_CORR_IMPL": "pallas_mxu"}, "local_correlation_band"),
                  "csub": ({"RPNET_CORR_IMPL": "csub"}, "local_correlation_csub"),
@@ -98,33 +112,11 @@ TRAIN_SWITCHES = {"pallas_mxu": ({"RPNET_CORR_IMPL": "pallas_mxu"}, "local_corre
                   "rot+pack": ({"RPNET_CORR_IMPL": "rot", "RPNET_ROT_PACK": "1"},
                                "local_correlation_packed")}
 VARIANT_TRAIN_EPISODES = 8                 # 2 steps of batch_size 4
+SWEEP_SHAPE = (32, 64, 64, 256)            # bench_tools/corr_sweep.py's shape (r=5)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2, rounds: int = 3) -> float:
-    """Device time of one ``fn()`` in ms: ``reps`` calls back to back between
-    two CUDA events, so the queue stays full and the host's launch time is
-    hidden wherever the device is the slower side (a single timed call would
-    count the device idling while the host enqueues); the median of
-    ``rounds`` such runs."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return sorted(times)[len(times) // 2]
 
 
 def corr_bound(shape, r: int, dtype_name: str, backward: bool = False):
@@ -178,6 +170,7 @@ def check_local_corr(shape, r: int, dtype, seed: int, timed: bool):
 
     from rpnet_tpu_torch.ops.correlation import (local_correlation,
                                                  local_correlation_plain)
+    from rpnet_tpu_torch.utils.timing import cuda_ms
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     fm1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -215,6 +208,7 @@ def check_local_corr_bwd(shape, r: int, dtype, seed: int, timed: bool):
 
     from rpnet_tpu_torch.ops.correlation import (local_correlation_bwd,
                                                  local_correlation_bwd_plain)
+    from rpnet_tpu_torch.utils.timing import cuda_ms
 
     B, H, W, C = shape
     d2 = (2 * r + 1) ** 2
@@ -290,6 +284,7 @@ def check_variant(kind: str, shape, r: int, dtype, seed: int, timed: bool,
     import torch
 
     from rpnet_tpu_torch.ops import correlation as tc
+    from rpnet_tpu_torch.utils.timing import cuda_ms
 
     B, H, W, C = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -357,6 +352,137 @@ def check_variant(kind: str, shape, r: int, dtype, seed: int, timed: bool,
     return res
 
 
+def check_sweep_kernel(kind: str, shape, r: int, dtype, seed: int, timed: bool,
+                       h_tile: int = 16, full_lanes: bool = False, out_f32: bool = True):
+    """One of the kernel sweep's own kernels vs its plain version, through its
+    wrapper (``bench_tools.corr_sweep``): ``swapped`` (planar f32, transposed
+    and cast by the wrapper) at ``h_tile`` rows a block, ``rotmxu`` with
+    ``full_lanes`` / ``out_f32``. The caching allocator's free blocks are
+    filled with NaN first, so an output element the kernel leaves unwritten
+    (a padding lane, a ragged edge) shows. Tolerances as check_variant's;
+    full_lanes padding must be exactly zero. Raises on disagreement."""
+    import torch
+
+    from rpnet_tpu_torch.bench_tools import corr_sweep as cs
+    from rpnet_tpu_torch.ops.correlation import local_correlation_plain
+    from rpnet_tpu_torch.utils.timing import cuda_ms
+
+    B, H, W, C = shape
+    d2 = (2 * r + 1) ** 2
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fm1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    fm2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if kind == "swapped":
+        kernel = lambda: cs.corr_swapped(fm1, fm2, r, h_tile=h_tile)  # noqa: E731
+        plain = lambda: cs.corr_swapped_plain(fm1, fm2, r, h_tile=h_tile)  # noqa: E731
+        sizes = [((B, d2, H, W), torch.float32), ((B, H, W, d2), dtype)]   # planar, result
+    else:
+        kernel = lambda: cs.corr_rotmxu(fm1, fm2, r, full_lanes=full_lanes,  # noqa: E731
+                                        out_f32=out_f32)
+        plain = lambda: cs.corr_rotmxu_plain(fm1, fm2, r, full_lanes=full_lanes,  # noqa: E731
+                                             out_f32=out_f32)
+        sizes = [((B, H, W, 128 if full_lanes else d2), dtype)]
+    # poison: blocks of the output sizes, filled with NaN and freed, are what
+    # the wrapper's torch.empty gets back
+    poison = [torch.full(s_, float("nan"), dtype=t, device="cuda") for s_, t in sizes]
+    del poison
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    pad_ok = True
+    if kind == "rotmxu" and full_lanes:
+        pad_ok = bool((out[..., d2:] == 0).all()) and bool((ref[..., d2:] == 0).all())
+        out, ref = out[..., :d2], ref[..., :d2]
+    err = (out.float() - ref.float()).abs().max().item()
+    name = str(dtype).replace("torch.", "")
+    if dtype == torch.bfloat16:
+        f32_sum = local_correlation_plain(fm1.float(), fm2.float(), r)
+        ok = all(torch.allclose(x.float(), f32_sum, rtol=2 ** -7, atol=1e-3) for x in (out, ref))
+        tol = "rtol 2**-7, atol 1e-3 of the f32 sum"
+    else:
+        ok = err <= 1e-4
+        tol = "atol 1e-4"
+    ok = ok and pad_ok and out.dtype == dtype
+    res = {"shape": list(shape), "r": r, "dtype": name, "max_abs_err": err}
+    res.update({"h_tile": h_tile} if kind == "swapped" else
+               {"full_lanes": full_lanes, "out_f32": out_f32, "padding_zero": pad_ok})
+    if timed:
+        res["ms"] = cuda_ms(kernel, reps=20)
+        res["plain_ms"] = cuda_ms(plain, reps=3)
+        res["bound_ms"], res["bound_by"], res["bound_unit"] = corr_bound(shape, r, name)
+    wrapper = f"corr_{kind}"
+    log(f"[sweep-kernels] {wrapper} {json.dumps(res)} ({tol}: {'ok' if ok else 'DISAGREES'})")
+    if not ok or not math.isfinite(err):
+        raise AssertionError(f"{wrapper} kernel disagrees with its plain version at "
+                             f"{shape} r={r} {name}: max err {err}, padding zero {pad_ok}")
+    return res
+
+
+def phase_sweep_kernels(edges):
+    """Rows 8 and 9 (the kernel sweep's own kernels) against their plain
+    versions: at the sweep shape in both dtypes, every h_tile instance of
+    corr_swapped and every output option of corr_rotmxu; then at the edge
+    shapes (those of local_corr.cu, plus H=64 at r=1 and 3 and H=100, where
+    rotmxu's second 64-row block starts), where H + 2r <= 128 allows.
+    Returns the timed results, keyed (kind, dtype name)."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    timed = {}
+    for i, dtype in enumerate((bf16, f32)):
+        name = str(dtype).replace("torch.", "")
+        timed[("swapped", name)] = check_sweep_kernel("swapped", SWEEP_SHAPE, 5, dtype,
+                                                      seed=40 + i, timed=True)
+        timed[("rotmxu", name)] = check_sweep_kernel("rotmxu", SWEEP_SHAPE, 5, dtype,
+                                                     seed=42 + i, timed=True)
+        timed[("rotmxu full_lanes", name)] = check_sweep_kernel(
+            "rotmxu", SWEEP_SHAPE, 5, dtype, seed=44 + i, timed=True, full_lanes=True)
+        for ht in (8, 32):
+            check_sweep_kernel("swapped", SWEEP_SHAPE, 5, dtype, seed=46 + i, timed=False,
+                               h_tile=ht)
+        check_sweep_kernel("rotmxu", SWEEP_SHAPE, 5, dtype, seed=48 + i, timed=False,
+                           out_f32=False)
+        check_sweep_kernel("rotmxu", SWEEP_SHAPE, 5, dtype, seed=50 + i, timed=False,
+                           full_lanes=True, out_f32=False)
+    more = [((2, 64, 24, 64), 1), ((2, 64, 24, 64), 3), ((1, 100, 16, 64), 5)]
+    for i, (shape, r) in enumerate(edges + more):
+        if shape[1] + 2 * r > 128:
+            continue
+        for j, dtype in enumerate((bf16, f32)):
+            check_sweep_kernel("swapped", shape, r, dtype, seed=60 + 4 * i + j, timed=False,
+                               h_tile=(8, 16, 32)[(i + j) % 3])
+            check_sweep_kernel("rotmxu", shape, r, dtype, seed=62 + 4 * i + j, timed=False,
+                               full_lanes=(i + j) % 2 == 0, out_f32=i % 2 == 0)
+    return timed
+
+
+def phase_sweep():
+    """The kernel sweep (``python -m rpnet_tpu_torch.bench_tools.corr_sweep``)
+    at its shape, 32x64x64x256 r=5, with the launch counts set to 0 just
+    before and read just after: no line may fail or miss its tolerance, and
+    every kernel of the sweep must have launched as often as its lines
+    call it (once checked, then 2 warm-up + 3 rounds of 20 timed calls)."""
+    from rpnet_tpu_torch.bench_tools import corr_sweep
+
+    per_line = 1 + 2 + 3 * 20
+    expect = {"local_correlation": 3 * per_line, "local_correlation_band": 2 * per_line,
+              "local_correlation_csub": 2 * per_line, "corr_swapped": 4 * per_line,
+              "corr_rotmxu": 4 * per_line, "local_correlation_bwd": per_line}
+    saved = {k: os.environ.pop(k, None) for k in ("SWEEP_ONLY", "SWEEP_BWD_ONLY")}
+    try:
+        reset_launches()
+        t0 = time.time()
+        failures = corr_sweep.main(SWEEP_SHAPE, 5)
+        launches = read_launches()
+    finally:
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+    log(f"[sweep] {time.time() - t0:.1f}s, failed lines {failures}, launches {launches}")
+    if failures:
+        raise AssertionError(f"kernel sweep lines failed: {failures}")
+    if launches != expect:
+        raise AssertionError(f"kernel sweep launches {launches}, expected {expect}")
+    return launches
+
+
 def make_dataset():
     from rpnet_tpu_torch.core.synthetic import generate_dataset
 
@@ -396,18 +522,21 @@ def main_path_slices(cfg):
             for ci, rows in enumerate(s.data_info) for row in rows]
 
 
-def reset_launches():
+def _wrappers():
+    from rpnet_tpu_torch.bench_tools import corr_sweep
     from rpnet_tpu_torch.ops import correlation as tc
 
-    for name in WRAPPERS:
-        getattr(tc, name).launches = 0
+    return ([getattr(tc, name) for name in WRAPPERS]
+            + [getattr(corr_sweep, name) for name in SWEEP_WRAPPERS])
+
+
+def reset_launches():
+    for fn in _wrappers():
+        fn.launches = 0
 
 
 def read_launches():
-    from rpnet_tpu_torch.ops import correlation as tc
-
-    return {name: getattr(tc, name).launches for name in WRAPPERS
-            if getattr(tc, name).launches}
+    return {fn.__name__: fn.launches for fn in _wrappers() if fn.launches}
 
 
 class switched:
@@ -839,6 +968,10 @@ def main() -> int:
     check_variant("pack", (4, 16, 64, 32), 5, bf16, seed=25, timed=False, partner=30.0)
     check_variant("pdot", (4, 64, 64, 48), 5, bf16, seed=26, timed=False)
 
+    # the kernel sweep: its own two kernels (rows 8 and 9), then the sweep
+    sweep_timed = phase_sweep_kernels(edges)
+    sweep_launches = phase_sweep()
+
     _, launches, default_outputs = phase_main_path(yaml_path)
     eval_launches = phase_eval_switches(yaml_path, dq, default_outputs)
     phase_reference()
@@ -849,9 +982,13 @@ def main() -> int:
     phase_train_reference()
 
     def entry(name, source, replaces, res, n_launches):
+        """``replaces``: a line of rpnet_tpu/ops/pallas/correlation.py, or
+        "file:line" of another file."""
+        if isinstance(replaces, int):
+            replaces = f"rpnet_tpu/ops/pallas/correlation.py:{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"rpnet_tpu_torch/ops/csrc/{source}",
-                "replaces": f"rpnet_tpu/ops/pallas/correlation.py:{replaces}",
+                "replaces": replaces,
                 "launches": n_launches, "max_abs_err": res["max_abs_err"],
                 "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "bound_unit": res["bound_unit"],
@@ -876,9 +1013,15 @@ def main() -> int:
               opt_in("local_correlation_packed")),
         entry("local_correlation_csub", "local_corr_csub.cu", 198, variant["csub"],
               opt_in("local_correlation_csub")),
+        entry("corr_swapped", "local_corr_sweep.cu", "bench_tools/corr_sweep.py:37",
+              sweep_timed[("swapped", "bfloat16")], sweep_launches["corr_swapped"]),
+        entry("corr_rotmxu", "local_corr_sweep.cu", "bench_tools/corr_sweep.py:100",
+              sweep_timed[("rotmxu", "bfloat16")], sweep_launches["corr_rotmxu"]),
     ]
     for kind, res in variant_train.items():
         log(f"[kernels] training shape, {kind}: {json.dumps(res)}")
+    for (kind, dtype), res in sweep_timed.items():
+        log(f"[kernels] sweep shape, {kind} {dtype}: {json.dumps(res)}")
     log("kernels " + json.dumps([
         {"name": k["name"], "max_abs_err": k["max_abs_err"], "kernel_ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

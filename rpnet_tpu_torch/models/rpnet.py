@@ -57,13 +57,16 @@ def cosine_distance(fts, prototype, scaler: float = DIST_SCALER):
 
 
 def masked_average_pool(fts, mask):
-    """getFeatures (net/rp_net.py:366-376) without the upsample, in f32.
+    """getFeatures (net/rp_net.py:366-376) without the upsample.
 
     fts (B, h, w, C) features; mask (B, H, W) full-resolution → (B, C) f32.
-    sum(upsample(fts) * mask) == sum(fts * upsampleᵀ(mask)).
+    sum(upsample(fts) * mask) == sum(fts * upsampleᵀ(mask)). The mask is
+    resized in its own dtype (the network's: bf16 in eval, each of the two
+    resize products rounded), then the spatial sums run in f32, as
+    ``rpnet_tpu/models/rpnet.py:64-82`` does.
     """
     h, w = fts.shape[1:3]
-    m_down = resize_transpose(mask.float()[..., None], (h, w))   # (B, h, w, 1)
+    m_down = resize_transpose(mask[..., None], (h, w)).float()   # (B, h, w, 1)
     num = torch.sum(fts.float() * m_down, dim=(1, 2))
     den = torch.sum(mask.float(), dim=(1, 2))[:, None] + 1e-5
     return num / den

@@ -110,6 +110,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             fn.restype = i
         lib.local_corr_csub_error_string.argtypes = [i]
         lib.local_corr_csub_error_string.restype = ctypes.c_char_p
+    elif name == "local_corr_sweep":
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.local_corr_swapped_f32, lib.local_corr_swapped_bf16,
+                   lib.local_corr_rotmxu_f32, lib.local_corr_rotmxu_bf16):
+            fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+            fn.restype = i
+        lib.local_corr_sweep_error_string.argtypes = [i]
+        lib.local_corr_sweep_error_string.restype = ctypes.c_char_p
 
 
 def launch_local_corr(fm1: torch.Tensor, fm2: torch.Tensor, out: torch.Tensor,
@@ -201,3 +209,29 @@ def launch_local_corr_csub(fm1t: torch.Tensor, fm2t: torch.Tensor,
     if err != 0:
         msg = lib.local_corr_csub_error_string(err).decode()
         raise RuntimeError(f"local_corr_csub launch failed: {msg} (cudaError {err})")
+
+
+def launch_local_corr_sweep(kind: str, fm1: torch.Tensor, fm2: torch.Tensor,
+                            out: torch.Tensor, r: int, tile: int,
+                            scale: float) -> None:
+    """Launch one of the kernel sweep's kernels on the current stream of the
+    tensors' device: ``swapped`` writes planar (B, d², H, W) float32 with
+    ``tile`` (8, 16 or 32) query rows a block; ``rotmxu`` writes (B, H, W,
+    ``tile``) in the inputs' dtype, ``tile`` = 128 lanes or d². The callers
+    in ``bench_tools.corr_sweep`` have checked device, dtype, shape and
+    contiguity."""
+    lib = load("local_corr_sweep")
+    bf16 = fm1.dtype == torch.bfloat16
+    fn = {("swapped", False): lib.local_corr_swapped_f32,
+          ("swapped", True): lib.local_corr_swapped_bf16,
+          ("rotmxu", False): lib.local_corr_rotmxu_f32,
+          ("rotmxu", True): lib.local_corr_rotmxu_bf16}[(kind, bf16)]
+    B, H, W, C = fm1.shape
+    with torch.cuda.device(fm1.device):
+        stream = torch.cuda.current_stream(fm1.device).cuda_stream
+        err = fn(fm1.data_ptr(), fm2.data_ptr(), out.data_ptr(),
+                 B, H, W, C, r, tile, scale, stream)
+    if err != 0:
+        msg = lib.local_corr_sweep_error_string(err).decode()
+        raise RuntimeError(f"local_corr_sweep ({kind}) launch failed: {msg} "
+                           f"(cudaError {err})")

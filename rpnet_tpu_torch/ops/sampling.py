@@ -81,9 +81,21 @@ def _resize_weights(src: int, dst: int, align_corners: bool) -> np.ndarray:
 
 
 def interpolate_bilinear(x, size: Tuple[int, int], align_corners: bool = False):
-    """``F.interpolate(x, size, mode='bilinear')`` on (N, H, W, C) input."""
-    return _nhwc(F.interpolate(_nchw(x), size=tuple(size), mode="bilinear",
-                               align_corners=align_corners))
+    """``F.interpolate(x, size, mode='bilinear')`` on (N, H, W, C) input.
+
+    Below f32 (the bf16 eval network) it is the JAX package's two resize
+    products, each rounded to the input dtype
+    (``rpnet_tpu/ops/sampling.py:152-163``): one ``F.interpolate`` rounds
+    once and differs from it by one ulp on about a third of the entries.
+    """
+    if x.dtype in (torch.float32, torch.float64):
+        return _nhwc(F.interpolate(_nchw(x), size=tuple(size), mode="bilinear",
+                                   align_corners=align_corners))
+    _, H, W, _ = x.shape
+    Ay = torch.from_numpy(_resize_weights(H, size[0], align_corners)).to(x)
+    Ax = torch.from_numpy(_resize_weights(W, size[1], align_corners)).to(x)
+    out = torch.einsum("oh,nhwc->nowc", Ay, x)
+    return torch.einsum("ow,nhwc->nhoc", Ax, out)
 
 
 def resize_transpose(cot, src_size: Tuple[int, int], align_corners: bool = False):

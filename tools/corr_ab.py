@@ -9,8 +9,8 @@ but not checked. Each source is built with nvcc into its
 own library under ``build/`` (ignored by git; the ptxas report of every
 kernel but the f32 FMA instances printed), held against the plain version
 at the tiling edges and the eval shape, then all are timed in turns
-(A B C ... band band ... C B A) with ``chip_smoke.cuda_ms`` at the eval
-shape (26×64×64×256 bf16, r=5) beside the band kernel, and with
+(A B C ... band band ... C B A) with ``rpnet_tpu_torch.utils.timing.cuda_ms``
+at the eval shape (26×64×64×256 bf16, r=5) beside the band kernel, and with
 ``AB_F32=1`` also checked in f32 and timed at the training shape
 (48×64×64×256 f32). Needs a CUDA device and nvcc.
 """
@@ -22,6 +22,7 @@ import torch
 import chip_smoke as cs
 from rpnet_tpu_torch.ops import kernels
 from rpnet_tpu_torch.ops import correlation as tc
+from rpnet_tpu_torch.utils.timing import cuda_ms
 
 bf16, f32 = torch.bfloat16, torch.float32
 print(cs.gpu_line(), flush=True)
@@ -121,5 +122,5 @@ for shape, dt in cases:
                                                         tc.correlation_scale(shape[3]))
         else:
             f = lambda lib=libs[name]: call(lib, fm1, fm2, out, 5)
-        res[name].append(cs.cuda_ms(f, reps=30))
+        res[name].append(cuda_ms(f, reps=30))
     print(f"TIMES {shape} {dt}: " + ", ".join(f"{k}: {v}" for k, v in res.items()), flush=True)
