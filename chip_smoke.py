@@ -7,7 +7,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
   1. build  — compile every kernel of the eval and training paths and of the
      opt-in correlation forwards from ops/csrc/ (one nvcc per source, all
      started together) for sm_90a, printing ptxas' register/shared-memory
-     report and the bf16 forward's design, shared memory and blocks an SM;
+     report, the bf16 forward's design, shared memory and blocks an SM, and
+     the backward's design, shared memory, blocks an SM, registers and
+     spills;
   2. kernels — call each kernel's wrapper on the card at the main paths'
      shapes, the eval shape (the first episode's query slices, 64×64,
      C=256, r=5, bf16), the training shape (48 slices, f32) and the bf16
@@ -15,7 +17,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      64-query strip, C=48 and C=320, r = 1, 2, 3, 5), and hold it against
      its plain PyTorch version: bf16 within
      one bf16 ulp of the f32 result (rtol 2**-7, atol 1e-3), f32 within atol
-     1e-4 (sums in another order); the autograd Function's input gradients
+     1e-4 (sums in another order); the backward at the training shape and
+     at the same edges (and r=4), both dtypes, g as the CRE's strided view
+     and contiguous, outputs NaN-poisoned; the autograd Function's input gradients
      against torch autograd of the plain forward (f32, atol 1e-4). The
      opt-in forwards likewise (``check_variant``): the tensor-core band
      kernel (RPNET_CORR_IMPL=pallas_mxu), its pdot epilogue
@@ -162,6 +166,15 @@ def phase_build():
         f"four consumer warpgroups, fm1 in registers), {plan['smem_bytes']} bytes of shared memory a block, "
         f"{plan['stages']} ring stages, {plan['blocks_per_sm']} block(s) an SM at C=256 r=5; "
         "f32: FP32 FMA body")
+    for bf16 in (False, True):
+        bp = kernels.local_corr_bwd_plan(bf16, 5)
+        log(f"[build] local_corr_bwd.cu {'bf16' if bf16 else 'f32'} design: transposed band "
+            f"on {'mma.sync m16n8k16' if bf16 else 'wgmma m64n32k8 3xTF32'}, 4 rows x 32 "
+            f"queries x 256 channels a block, 16 warps, 2-row cp.async ring, bands built "
+            f"once a source row; "
+            f"{bp['smem_bytes']} bytes of shared memory a block, {bp['blocks_per_sm']} "
+            f"block(s) an SM, {bp['registers']} registers a thread, {bp['local_bytes']} "
+            "bytes of local memory a thread (spills) at r=5")
 
 
 def check_local_corr(shape, r: int, dtype, seed: int, timed: bool):
@@ -201,9 +214,12 @@ def check_local_corr(shape, r: int, dtype, seed: int, timed: bool):
     return res
 
 
-def check_local_corr_bwd(shape, r: int, dtype, seed: int, timed: bool):
+def check_local_corr_bwd(shape, r: int, dtype, seed: int, timed: bool,
+                         strided: bool = True):
     """Backward kernel vs plain version on one input, g a strided view of a
-    concat gradient as the CRE hands it over; raises on disagreement."""
+    concat gradient as the CRE hands it over (or contiguous), on outputs the
+    caching allocator had filled with NaN (an element the kernel leaves
+    unwritten shows); raises on disagreement."""
     import torch
 
     from rpnet_tpu_torch.ops.correlation import (local_correlation_bwd,
@@ -215,7 +231,12 @@ def check_local_corr_bwd(shape, r: int, dtype, seed: int, timed: bool):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     fm1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     fm2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    g = torch.randn((B, H, W, d2 + C), generator=gen, device="cuda").to(dtype)[..., :d2]
+    width = d2 + C if strided else d2
+    g = torch.randn((B, H, W, width), generator=gen, device="cuda").to(dtype)[..., :d2]
+    # poison: blocks of the outputs' size, filled with NaN and freed, are
+    # what the wrapper's torch.empty_like gets back
+    poison = [torch.full(shape, float("nan"), dtype=dtype, device="cuda") for _ in range(2)]
+    del poison
     out = local_correlation_bwd(g, fm1, fm2, r)
     plain = local_correlation_bwd_plain(g, fm1, fm2, r)
     torch.cuda.synchronize()
@@ -229,7 +250,8 @@ def check_local_corr_bwd(shape, r: int, dtype, seed: int, timed: bool):
         ok = err <= 1e-4
         tol = "atol 1e-4"
     name = str(dtype).replace("torch.", "")
-    res = {"shape": list(shape), "r": r, "dtype": name, "max_abs_err": err}
+    res = {"shape": list(shape), "r": r, "dtype": name, "max_abs_err": err,
+           "g": "strided" if strided else "contiguous"}
     if timed:
         res["ms"] = cuda_ms(lambda: local_correlation_bwd(g, fm1, fm2, r), reps=20)
         res["plain_ms"] = cuda_ms(lambda: local_correlation_bwd_plain(g, fm1, fm2, r), reps=3)
@@ -901,6 +923,37 @@ def phase_reference():
         raise AssertionError("the model on the card disagrees with the CPU reference")
 
 
+def measure_bf16_rounding():
+    """The price on the card of bf16 eval rounding as the JAX package does
+    (a measurement; nothing is checked): the port's BatchNorm2d and Conv2d
+    in bf16 eval (per-op roundings) against torch's fused eval batch norm
+    and fused conv bias on the same tensors, at the eval encoder's first
+    and last levels (2 × 26 slices)."""
+    import torch
+    import torch.nn.functional as F
+
+    from rpnet_tpu_torch.models.blocks import BatchNorm2d, Conv2d
+    from rpnet_tpu_torch.utils.timing import cuda_ms
+
+    for shape in ((52, 256, 256, 64), (52, 32, 32, 256)):
+        C = shape[-1]
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        bn = BatchNorm2d(C).eval().to("cuda", torch.bfloat16)
+        conv = Conv2d(C, C, 3, padding=1).eval().to("cuda", torch.bfloat16)
+        with torch.no_grad():
+            ms = {
+                "bn per-op": cuda_ms(lambda: bn(x), reps=10),
+                "bn fused": cuda_ms(lambda: F.batch_norm(
+                    x.permute(0, 3, 1, 2), bn.running_mean, bn.running_var, bn.weight,
+                    bn.bias, False, 0.0, bn.eps), reps=10),
+                "conv + bias add": cuda_ms(lambda: conv(x), reps=10),
+                "conv fused bias": cuda_ms(lambda: F.conv2d(
+                    x.permute(0, 3, 1, 2), conv.weight, conv.bias, padding=1), reps=10),
+            }
+        log(f"[bf16-rounding] {list(shape)}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+
+
 def gpu_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -945,8 +998,16 @@ def main() -> int:
     train_shape = (4 * int(cfg["k"]), 64, 64, 256)    # E·k slices of the train step
     train_fwd = check_local_corr(train_shape, 5, f32, seed=6, timed=True)
     train_bwd = check_local_corr_bwd(train_shape, 5, f32, seed=7, timed=True)
-    check_local_corr_bwd((3, 20, 20, 64), 2, f32, seed=8, timed=False)
-    check_local_corr_bwd((3, 20, 20, 64), 2, bf16, seed=9, timed=False)
+    check_local_corr_bwd(train_shape, 5, f32, seed=8, timed=False, strided=False)
+    check_local_corr_bwd(train_shape, 5, bf16, seed=9, timed=False)
+    # the backward's tiling edges (4-row x 32-query x 256-channel blocks,
+    # a band depth per radius), both dtypes, g strided and contiguous
+    bwd_edges = edges + [((2, 64, 64, 256), 4)]
+    for i, (shape, r) in enumerate(bwd_edges):
+        for j, dtype in enumerate((f32, bf16)):
+            for strided in (True, False):
+                check_local_corr_bwd(shape, r, dtype, seed=70 + 4 * i + 2 * j + strided,
+                                     timed=False, strided=strided)
     check_autograd((3, 20, 20, 64), 2, seed=10)
     check_autograd((4, 64, 64, 256), 5, seed=11)
 
@@ -974,6 +1035,7 @@ def main() -> int:
 
     _, launches, default_outputs = phase_main_path(yaml_path)
     eval_launches = phase_eval_switches(yaml_path, dq, default_outputs)
+    measure_bf16_rounding()
     phase_reference()
     train_yaml, train_cfg = make_train_config()
     train_res, train_launches, _ = phase_training(train_yaml, train_cfg)

@@ -31,9 +31,17 @@ from rpnet_tpu_torch.ops.sampling import upsample_nearest2x
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` on (N, H, W, C) tensors."""
+    """``nn.Conv2d`` on (N, H, W, C) tensors.
+
+    Below f32 the bias is added after the convolution's result is rounded,
+    as flax's ``nn.Conv`` does (two roundings; a fused bias rounds once and
+    differs from it by one ulp on about a quarter of bf16 outputs).
+    """
 
     def forward(self, x):
+        if x.dtype.itemsize < 4 and self.bias is not None:
+            y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight, None)
+            return y.permute(0, 2, 3, 1) + self.bias.to(x.dtype)
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
@@ -49,12 +57,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch statistics; since the update is linear, that equals the JAX
     trainer's mean over episodes of the per-episode updates
     (``rpnet_tpu/train/trainer.py:198-203``).
+
+    In eval mode below f32 (the bf16 eval network) it rounds as flax does,
+    after each of its three ops; torch's fused eval batch norm rounds once
+    and differs from flax by one ulp on about 45% of outputs. f32 eval is
+    torch's.
     """
 
     groups = 1   # episodes in the batch axis (set by RPNet's training forward)
 
     def forward(self, x):
         if not self.training:
+            if x.dtype.itemsize < 4:
+                # below f32, flax's order and roundings: each op rounds to
+                # x.dtype, (x - mean) * (rsqrt(var + eps) * scale) + bias
+                dt = x.dtype
+                mul = torch.rsqrt(self.running_var.to(dt) + self.eps) * self.weight.to(dt)
+                return (x - self.running_mean.to(dt)) * mul + self.bias.to(dt)
             return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         N, H, W, C = x.shape
         xg = x.reshape(self.groups, -1, C)

@@ -7,7 +7,9 @@ channels, ``ops/correlation.py`` — the Hopper kernels on the card, forward
 and, under autograd, backward), and ONE
 1×1 conv + BN + ReLU (``q``) over ``[corr, fm1]`` down to 64 features, as
 upstream. The JAX package splits that conv in two by linearity; the weight
-bridge (``train/convert.py``) fuses it back. The upstream ``w_context``/``out``
+bridge (``train/convert.py``) fuses it back. Below f32 in eval (the bf16 eval
+network) the port splits it as the JAX package does, so that it rounds where
+that one does. The upstream ``w_context``/``out``
 submodules are never called and are not built.
 
 The backward of ``torch.cat([corr, fm1])`` hands the correlation's backward
@@ -24,6 +26,7 @@ so the weights are the same under every switch.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from rpnet_tpu_torch.models.blocks import conv_bn_relu
@@ -49,4 +52,15 @@ class ContextCorrelationEncoder(nn.Module):
         fm2 = self.w_q(fm2).contiguous()
         route = correlation_route(fm1, self.radius, self.training)
         corr = local_correlation_trainable(fm1, fm2, self.radius, route)   # (B, h, w, (2r+1)²)
+        if fm1.dtype.itemsize < 4 and not self.training:
+            return self.q[2](self.q[1](self._q_split(corr, fm1)))
         return self.q(torch.cat([corr, fm1], dim=-1))
+
+    def _q_split(self, corr, fm1):
+        """``q``'s 1×1 conv as the JAX CRE computes it below f32: one conv
+        over corr plus one over fm1 (then its bias), each result rounded."""
+        conv, d2 = self.q[0], corr.shape[-1]
+        w = conv.weight.to(corr.dtype)
+        a = F.conv2d(corr.permute(0, 3, 1, 2), w[:, :d2]).permute(0, 2, 3, 1)
+        b = F.conv2d(fm1.permute(0, 3, 1, 2), w[:, d2:]).permute(0, 2, 3, 1)
+        return a + (b + conv.bias.to(fm1.dtype))

@@ -51,9 +51,17 @@ def cosine_distance(fts, prototype, scaler: float = DIST_SCALER):
     product instead). fts (B, h, w, C); prototype (B, C) → (B, h, w)."""
     proto = prototype[:, None, None, :]
     dot = torch.sum(fts * proto, dim=-1)
-    n1 = torch.linalg.vector_norm(fts, dim=-1).clamp_min(COSINE_EPS)
-    n2 = torch.linalg.vector_norm(proto, dim=-1).clamp_min(COSINE_EPS)
+    n1 = _norm(fts).clamp_min(COSINE_EPS)
+    n2 = _norm(proto).clamp_min(COSINE_EPS)
     return dot / (n1 * n2) * scaler
+
+
+def _norm(x):
+    """2-norm over the last axis; below f32 as ``jnp.linalg.norm`` computes
+    it, sqrt(sum(x·x)) with the squares, the sum and the root each rounded."""
+    if x.dtype.itemsize < 4:
+        return torch.sqrt(torch.sum(x * x, dim=-1))
+    return torch.linalg.vector_norm(x, dim=-1)
 
 
 def masked_average_pool(fts, mask):

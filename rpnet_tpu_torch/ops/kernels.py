@@ -92,6 +92,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.local_corr_bwd_f32, lib.local_corr_bwd_bf16):
             fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
             fn.restype = i
+        lib.local_corr_bwd_plan.argtypes = [i, i, p, p, p, p]
+        lib.local_corr_bwd_plan.restype = i
         lib.local_corr_bwd_error_string.argtypes = [i]
         lib.local_corr_bwd_error_string.restype = ctypes.c_char_p
     elif name == "local_corr_band":
@@ -148,6 +150,20 @@ def local_corr_bf16_plan(C: int, r: int) -> Dict[str, int]:
         msg = lib.local_corr_error_string(err).decode()
         raise RuntimeError(f"local_corr_bf16_plan failed: {msg} (cudaError {err})")
     return dict(zip(("smem_bytes", "stages", "blocks_per_sm"), (v.value for v in out)))
+
+
+def local_corr_bwd_plan(bf16: bool, r: int) -> Dict[str, int]:
+    """The backward kernel's launch plan at radius ``r``: shared memory a
+    block (bytes), resident blocks an SM (the CUDA occupancy calculator),
+    registers a thread and local memory a thread (bytes; ptxas spills)."""
+    lib = load("local_corr_bwd")
+    out = [ctypes.c_int() for _ in range(4)]
+    err = lib.local_corr_bwd_plan(int(bf16), r, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        msg = lib.local_corr_bwd_error_string(err).decode()
+        raise RuntimeError(f"local_corr_bwd_plan failed: {msg} (cudaError {err})")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"),
+                    (v.value for v in out)))
 
 
 def launch_local_corr_bwd(g: torch.Tensor, g_pitch: int, fm1: torch.Tensor,
