@@ -7,15 +7,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
   1. build  — compile every kernel of the eval and training paths and of the
      opt-in correlation forwards from ops/csrc/ (one nvcc per source, all
      started together) for sm_90a, printing ptxas' register/shared-memory
-     report, the bf16 forward's design, shared memory and blocks an SM, and
-     the backward's design, shared memory, blocks an SM, registers and
-     spills;
+     report, the bf16 forward's design, shared memory and blocks an SM, the
+     f32 forward's and the backward's designs, shared memory, blocks an SM,
+     registers and spills;
   2. kernels — call each kernel's wrapper on the card at the main paths'
      shapes, the eval shape (the first episode's query slices, 64×64,
-     C=256, r=5, bf16), the training shape (48 slices, f32) and the bf16
-     forward's tiling edges in both dtypes (ragged 20×20, W past one
-     64-query strip, C=48 and C=320, r = 1, 2, 3, 5), and hold it against
-     its plain PyTorch version: bf16 within
+     C=256, r=5, bf16), the training shape (48 slices, f32) and the
+     forward's tiling edges in both dtypes (ragged 20×20 and 3×5, W past one
+     32- or 64-query strip, C = 16, 48 and 320, r = 1..5), on outputs
+     NaN-poisoned, and hold it against its plain PyTorch version: bf16 within
      one bf16 ulp of the f32 result (rtol 2**-7, atol 1e-3), f32 within atol
      1e-4 (sums in another order); the backward at the training shape and
      at the same edges (and r=4), both dtypes, g as the CRE's strided view
@@ -164,8 +164,14 @@ def phase_build():
     plan = kernels.local_corr_bf16_plan(256, 5)
     log(f"[build] local_corr.cu bf16 design: TMA + wgmma (m64n32k16, one producer warp, "
         f"four consumer warpgroups, fm1 in registers), {plan['smem_bytes']} bytes of shared memory a block, "
-        f"{plan['stages']} ring stages, {plan['blocks_per_sm']} block(s) an SM at C=256 r=5; "
-        "f32: FP32 FMA body")
+        f"{plan['stages']} ring stages, {plan['blocks_per_sm']} block(s) an SM at C=256 r=5")
+    fp = kernels.local_corr_f32_plan(256, 5)
+    log(f"[build] local_corr.cu f32 design: TMA + wgmma m64n32k8 3xTF32 (one producer warp, "
+        f"two splitter warps, two consumer warpgroups, 4 rows x 32 queries a block, of each "
+        f"256 channels of fm1 128 in registers and 128 resident in shared memory); "
+        f"{fp['smem_bytes']} bytes of shared memory a block, "
+        f"{fp['blocks_per_sm']} block(s) an SM, {fp['registers']} registers a thread, "
+        f"{fp['local_bytes']} bytes of local memory a thread (spills) at C=256 r=5")
     for bf16 in (False, True):
         bp = kernels.local_corr_bwd_plan(bf16, 5)
         log(f"[build] local_corr_bwd.cu {'bf16' if bf16 else 'f32'} design: transposed band "
@@ -178,7 +184,9 @@ def phase_build():
 
 
 def check_local_corr(shape, r: int, dtype, seed: int, timed: bool):
-    """Kernel vs plain version on one input; raises on disagreement."""
+    """Kernel vs plain version on one input, on an output the caching
+    allocator had filled with NaN (an element the kernel leaves unwritten
+    shows); raises on disagreement."""
     import torch
 
     from rpnet_tpu_torch.ops.correlation import (local_correlation,
@@ -188,6 +196,11 @@ def check_local_corr(shape, r: int, dtype, seed: int, timed: bool):
     g = torch.Generator(device="cuda").manual_seed(seed)
     fm1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
     fm2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    # poison: a block of the output's size, filled with NaN and freed, is
+    # what the wrapper's torch.empty gets back
+    poison = torch.full(shape[:3] + ((2 * r + 1) ** 2,), float("nan"), dtype=dtype,
+                        device="cuda")
+    del poison
     out = local_correlation(fm1, fm2, r)
     plain = local_correlation_plain(fm1, fm2, r)
     torch.cuda.synchronize()
@@ -992,7 +1005,10 @@ def main() -> int:
     # ragged 20x20, every radius class
     edges = [((3, 20, 20, 64), 2), ((2, 40, 100, 128), 5), ((1, 6, 72, 48), 5),
              ((3, 20, 20, 64), 1), ((3, 20, 20, 64), 3), ((2, 16, 64, 320), 5)]
-    for i, (shape, r) in enumerate(edges):
+    # the f32 kernel's: 32-query strips, 32-channel chunks, 256-channel
+    # groups (C=320 takes two), C=16 half a chunk, r=4
+    fwd_edges = edges + [((1, 3, 5, 16), 5), ((2, 64, 64, 256), 4)]
+    for i, (shape, r) in enumerate(fwd_edges):
         for j, dtype in enumerate((bf16, f32)):
             check_local_corr(shape, r, dtype, seed=30 + 2 * i + j, timed=False)
     train_shape = (4 * int(cfg["k"]), 64, 64, 256)    # E·k slices of the train step

@@ -62,15 +62,47 @@
 //   shape, against 0.8 GB for the band kernel). A wait on a barrier that
 //   never completes traps instead of hanging the card.
 //
-// f32 (local_corr_f32): FP32 FMAs. Bound at the training shape (48 slices,
-//   C=256, r=5): 498 MB, 149 us at 3.35 TB/s; three TF32 passes of its
-//   11.2 GFLOP take 68 us, so it is memory-bound too, but on the FP32 FMA
-//   units this body uses the same work takes 167 us. Design: one block per
-//   (image, 4-row x 32-column output tile); channels staged through shared
-//   memory 16 at a time as f32 (the fm1 tile and fm2's haloed slab,
-//   channel-major, odd slab pitch for the banks), fetched with 16-byte loads
-//   one step ahead; thread (column group, dy, row) keeps 4 x d sums in
-//   registers (register blocking along x).
+// f32 (local_corr_f32): TMA staging and wgmma band products in 3xTF32.
+//   Bound at the training shape (48 slices, 64x64, C=256, r=5): the function
+//   reads 402 MB and writes 95 MB, 149 us at 3.35 TB/s; its 11.2 GFLOP of
+//   in-image products take 68 us as three TF32 passes. The band tiling
+//   below multiplies the products by 32/11 x 14/11 (128 GFLOP with the rows
+//   outside the image skipped): 0.26 ms at the TF32 peak.
+//   Products. The bf16 band product on a 32-query strip: a block owns QR = 4
+//   query rows and two 16-query sub-strips, one consumer warpgroup each. For
+//   each source row s and sub-strip j, wgmma m64n32k8 TF32 forms D[64 x 32]
+//   = A[64 x C] * B[32 x C]^T with the bf16 row and column maps, in three
+//   passes: small(A) big(B) + big(A) small(B) + big(A) big(B), big = the
+//   value with its low 13 bits masked, small = the rest (exact in f32). A raw
+//   f32 operand serves as its own big part: the tensor core ignores a TF32
+//   operand's low 13 bits. A comes from registers, B from shared memory.
+//   Registers. Nine warps put three on one SM sub-partition, which caps a
+//   thread at 168 registers (a producer warpgroup that gives registers back
+//   with setmaxnreg does not raise ptxas' budget). So of each 256-channel
+//   group, 4 chunks of 32 channels sit in registers as raw fragments (64 a
+//   thread) and the other 4 stay resident in shared memory, their fragments
+//   read per k step. A source row's products are unrolled over the register
+//   chunks only: unrolled to 96 wgmmas, ptxas serializes every one of them
+//   (C7512, whatever the registers). C > 256 runs in groups of 256 channels,
+//   each group's band added into the output tile.
+//   Loads. TMA only, 4-d tensor maps as bf16, boxes of 32 channels (128
+//   bytes, the 128-byte swizzle), zero-filled outside the image and past C.
+//   One producer warp issues, in order, through one ring of 12 KB stages:
+//   per group the register chunks (one sub-strip's 4 rows x 16 queries a
+//   stage), then for each source row inside the image and each chunk the
+//   row's 48 staged columns (6 KB); the resident chunks go to their own area
+//   once a group. Two splitter warps write each landed row chunk's small
+//   parts (the same swizzled layout, 6 KB further on) and publish the stage
+//   on a `ready` barrier, which the consumers wait on.
+//   Epilogue. As bf16, in f32: after each source row a warpgroup writes its
+//   band, scaled, into a (4, 32, d^2) f32 output tile (62 KB at r=5), stored
+//   in 16-byte runs at the end.
+//   Budget at C=256, r=5: 8 stages x 12 KB + 64 KB of resident fm1 + the
+//   tile + 1 KB of alignment = 226,816 bytes of shared memory, one block an
+//   SM; per block 128 KB of fm1 and 14 x 8 x 6 KB of fm2 through L2 (1.23 GB
+//   a launch at the training shape). What holds it (PERF.md has the
+//   readings): the loads alone take 0.30 ms, the loads with the consumers'
+//   other work 0.44, and the products add their whole tensor floor on top.
 
 #include <cuda.h>   // CUtensorMap and its enums only: the driver entry point
                     // is fetched at run time, so no -lcuda
@@ -78,150 +110,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
-
-// ---------------------------------------------------------------------------
-// f32: FP32 FMA body
-// ---------------------------------------------------------------------------
-
-constexpr int TY = 4;        // output rows per block
-constexpr int P = 4;         // adjacent output columns per thread
-constexpr int XG = 8;        // column groups per block
-constexpr int TX = P * XG;   // output columns per block
-constexpr int CC = 16;       // channels staged per step; C must be a multiple
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
-}
-
-template <int R>
-__global__ void __launch_bounds__((2 * R + 1) * XG * TY)
-local_corr_fma_kernel(const float* __restrict__ fm1, const float* __restrict__ fm2,
-                      float* __restrict__ out, int H, int W, int C, float scale) {
-  constexpr int D = 2 * R + 1;
-  constexpr int SR = TY + 2 * R;           // slab rows
-  constexpr int SC = TX + 2 * R;           // slab columns
-  constexpr int SP = SC + 1;               // slab row pitch, odd (banks)
-  constexpr int NT = D * XG * TY;          // threads per block
-  constexpr int V = 4;                     // channels per 16-byte load
-  constexpr int PARTS = CC / V;            // 16-byte loads per pixel and step
-  constexpr int U1 = TY * TX * PARTS;      // loads of the fm1 tile per step
-  constexpr int U = U1 + SR * SC * PARTS;  // ... and of the fm2 slab
-  constexpr int NU = (U + NT - 1) / NT;    // loads per thread per step
-  __shared__ float s1[CC][TY][TX];
-  __shared__ float s2[CC][SR][SP];
-
-  const int xg = threadIdx.x;
-  const int dy = threadIdx.y;
-  const int ty = threadIdx.z;
-  const int tid = threadIdx.x + XG * (threadIdx.y + D * threadIdx.z);
-
-  const int y0 = blockIdx.y * TY;
-  const int x0 = blockIdx.x * TX;
-  const size_t img = static_cast<size_t>(blockIdx.z) * H * W;
-
-  // Load u of a step: the fm1 tile's pixels first, then the slab's, each
-  // pixel's PARTS loads adjacent (consecutive threads, consecutive bytes).
-  uint4 buf[NU];
-  auto fetch = [&](int c0) {
-#pragma unroll
-    for (int k = 0; k < NU; ++k) {
-      const int u = tid + k * NT;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (u < U1) {
-        const int part = u % PARTS, px = u / PARTS;
-        const int y = y0 + px / TX, x = x0 + px % TX;
-        if (y < H && x < W)
-          v = *reinterpret_cast<const uint4*>(
-              fm1 + (img + static_cast<size_t>(y) * W + x) * C + c0 + part * V);
-      } else if (u < U) {
-        const int part = (u - U1) % PARTS, px = (u - U1) / PARTS;
-        const int y = y0 - R + px / SC, x = x0 - R + px % SC;
-        if (y >= 0 && y < H && x >= 0 && x < W)   // zero outside the image
-          v = *reinterpret_cast<const uint4*>(
-              fm2 + (img + static_cast<size_t>(y) * W + x) * C + c0 + part * V);
-      }
-      buf[k] = v;
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int k = 0; k < NU; ++k) {
-      const int u = tid + k * NT;
-      float f[V];
-      unpack(buf[k], f);
-      if (u < U1) {
-        const int part = u % PARTS, px = u / PARTS;
-#pragma unroll
-        for (int e = 0; e < V; ++e) s1[part * V + e][px / TX][px % TX] = f[e];
-      } else if (u < U) {
-        const int part = (u - U1) % PARTS, px = (u - U1) / PARTS;
-#pragma unroll
-        for (int e = 0; e < V; ++e) s2[part * V + e][px / SC][px % SC] = f[e];
-      }
-    }
-  };
-
-  float acc[P][D];
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int k = 0; k < D; ++k) acc[p][k] = 0.f;
-
-  fetch(0);
-  stash();
-  __syncthreads();
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    const bool more = c0 + CC < C;
-    if (more) fetch(c0 + CC);   // in flight while this step computes
-
-#pragma unroll 2
-    for (int c = 0; c < CC; ++c) {
-      float a[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) a[p] = s1[c][ty][xg * P + p];
-      // slab column xg*P + j holds fm2 at dx = j - p for output column p
-#pragma unroll
-      for (int j = 0; j < P + 2 * R; ++j) {
-        const float v = s2[c][ty + dy][xg * P + j];
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const int dx = j - p;
-          if (dx >= 0 && dx < D) acc[p][dx] = fmaf(a[p], v, acc[p][dx]);
-        }
-      }
-    }
-    __syncthreads();
-    if (more) {
-      stash();
-      __syncthreads();
-    }
-  }
-
-  const int y = y0 + ty;
-  if (y >= H) return;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const int x = x0 + xg * P + p;
-    if (x < W) {
-      float* o = out + (img + static_cast<size_t>(y) * W + x) * (D * D) + dy;
-#pragma unroll
-      for (int dx = 0; dx < D; ++dx) o[dx * D] = acc[p][dx] * scale;
-    }
-  }
-}
-
-template <int R>
-cudaError_t launch_fma(const void* fm1, const void* fm2, void* out, int B, int H,
-                       int W, int C, float scale, cudaStream_t stream) {
-  const dim3 block(XG, 2 * R + 1, TY);
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  local_corr_fma_kernel<R><<<grid, block, 0, stream>>>(
-      static_cast<const float*>(fm1), static_cast<const float*>(fm2),
-      static_cast<float*>(out), H, W, C, scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16: TMA + wgmma
@@ -543,6 +434,340 @@ local_corr_tc_kernel(const __grid_constant__ CUtensorMap map1,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32: TMA + wgmma, 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int F_NSUB = 2;                      // sub-strips per block, one per consumer warpgroup
+constexpr int F_TXW = SUB * F_NSUB;            // queries per block and row
+constexpr int F_SCOLS = F_TXW - SUB + NB;      // staged source columns x0-r .. x0-r+47
+constexpr int F_CK = 32;                       // channels per chunk: one 128-byte swizzle row
+constexpr int F_GROUP = 8;                     // chunks a group (256 channels)
+constexpr int F_REG = 4;                       // chunks of a group held in registers
+constexpr int F_RAW = F_SCOLS * ROWB;          // one source row's chunk, 6 KB
+constexpr int F_A = QR * SUB * ROWB;           // one sub-strip's fm1 chunk, 8 KB
+constexpr int F_STAGE = 2 * F_RAW;             // the raw chunk and its small parts, 12 KB
+                                               // (or one sub-strip's fm1 chunk)
+constexpr int F_NCONS = 128 * F_NSUB;
+constexpr int F_NSPLIT = 2;                    // splitter warps
+constexpr int F_NT = F_NCONS + 32 * (1 + F_NSPLIT);   // + a producer warp and the splitters
+static_assert(F_A <= F_STAGE && F_STAGE % ALIGN == 0 && F_RAW % ALIGN == 0,
+              "stages keep the 128-byte swizzle's 1 KB alignment");
+
+struct F32Plan {
+  int nk;        // channel chunks
+  int group_nk;  // chunks a group (the kernel instance: 1, 2, 4 or 8)
+  int nstage;    // ring stages
+  int res_bytes, out_bytes, smem;   // res: the group's fm1 chunks past F_REG
+};
+
+F32Plan make_f32_plan(int C, int r) {
+  F32Plan p;
+  const int dd = (2 * r + 1) * (2 * r + 1);
+  p.nk = (C + F_CK - 1) / F_CK;
+  p.group_nk = p.nk >= F_GROUP ? F_GROUP : p.nk > 2 ? 4 : p.nk;
+  p.res_bytes = (p.group_nk > F_REG ? p.group_nk - F_REG : 0) * F_NSUB * F_A;
+  p.out_bytes = (QR * F_TXW * dd * 4 + 15) / 16 * 16;
+  const int avail = SMEM_LIMIT - STATIC_RESERVE - ALIGN - p.res_bytes - p.out_bytes;
+  p.nstage = avail / F_STAGE < MAX_STAGES ? avail / F_STAGE : MAX_STAGES;
+  p.smem = ALIGN + p.nstage * F_STAGE + p.res_bytes + p.out_bytes;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// x = big + small: big keeps x's top 11 significant bits (a TF32 value),
+// small = x - big is exact in f32; the tensor core reads small's top 11
+// bits, which drops at most 2^-20 |x|
+__device__ __forceinline__ uint32_t tf32_big(uint32_t w) { return w & 0xffffe000u; }
+__device__ __forceinline__ uint32_t tf32_small(uint32_t w) {
+  return __float_as_uint(__uint_as_float(w) - __uint_as_float(tf32_big(w)));
+}
+// D[64 x 32] (+)= A[64 x 8] * B[32 x 8]^T in TF32, A from registers (the
+// mma.sync m16n8k8 layout, one 16-row slice a warp), B K-major in shared
+// memory; f32 accumulators, accumulate = 0 overwrites D
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&fa)[4], uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " WGMMA_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WGMMA_D16_ARGS(d)
+      : "r"(fa[0]), "r"(fa[1]), "r"(fa[2]), "r"(fa[3]), "l"(db), "r"(accumulate));
+}
+
+// NK: chunks a group; C > 32*NK runs in groups of NK chunks (NK = 8). Of a
+// group, the first NKR = min(NK, F_REG) chunks are held in registers, the
+// rest resident in shared memory
+template <int NK>
+__global__ void __launch_bounds__(F_NT, 1)
+local_corr_f32_kernel(const __grid_constant__ CUtensorMap map1,
+                      const __grid_constant__ CUtensorMap map2,
+                      float* __restrict__ out, const Args a) {
+  constexpr int NKR = NK < F_REG ? NK : F_REG, NKS = NK - NKR;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], ready[MAX_STAGES], empty[MAX_STAGES],
+      res_full, res_empty;
+
+  const int D = 2 * a.r + 1, DD = D * D;
+  const int x0 = blockIdx.x * F_TXW, y0 = blockIdx.y * QR, b = blockIdx.z;
+  const int nj = min(F_NSUB, (a.W - x0 + SUB - 1) / SUB);   // sub-strips inside the image
+  const int s_lo = max(0, y0 - a.r), s_hi = min(a.H - 1, y0 + QR - 1 + a.r);
+  const int ngroups = (a.nk + NK - 1) / NK;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring_s = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  const uint32_t res_s = ring_s + a.nstage * F_STAGE;   // [chunk - NKR][sub-strip]: 8 KB each
+  float* so = reinterpret_cast<float*>(smem_raw + (res_s + NKS * F_NSUB * F_A - raw));
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.nstage; ++i) {
+      mbar_init(smem_u32(&full[i]), 1);
+      mbar_init(smem_u32(&ready[i]), F_NSPLIT);       // one arrival per splitter warp
+      mbar_init(smem_u32(&empty[i]), F_NCONS / 32);   // one arrival per consumer warp
+    }
+    mbar_init(smem_u32(&res_full), 1);
+    mbar_init(smem_u32(&res_empty), F_NCONS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the role as a value ptxas can see is warp-uniform (see bf16)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp > F_NCONS / 32) {
+    // ---- splitters: as each stage lands, the small parts of its 48 raw
+    // columns (the same swizzled layout, F_RAW further on), for both
+    // consumer warpgroups; then `ready`. fm1 stages pass through.
+    const int lane = threadIdx.x & 31, sp = warp - F_NCONS / 32 - 1;
+    int stage = 0, phase = 0;
+    auto pass = [&](bool split) {
+      mbar_wait(smem_u32(&full[stage]), phase);
+      if (split) {
+        const uint32_t st = ring_s + stage * F_STAGE;
+        constexpr int PER = F_RAW / 16 / (32 * F_NSPLIT);   // 16-byte units a lane
+        uint4 v[PER];
+#pragma unroll
+        for (int i = 0; i < PER; ++i)
+          asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(v[i].x), "=r"(v[i].y), "=r"(v[i].z), "=r"(v[i].w)
+                       : "r"(st + 16 * ((sp * PER + i) * 32 + lane)));
+#pragma unroll
+        for (int i = 0; i < PER; ++i)
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                       ::"r"(st + F_RAW + 16 * ((sp * PER + i) * 32 + lane)),
+                         "r"(tf32_small(v[i].x)), "r"(tf32_small(v[i].y)),
+                         "r"(tf32_small(v[i].z)), "r"(tf32_small(v[i].w)) : "memory");
+        fence_proxy_async();   // visible to the tensor cores' reads
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&ready[stage]));
+      if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+    };
+    for (int g = 0; g < ngroups; ++g) {
+      const int nkg = min(NK, a.nk - g * NK);
+      for (int i = 0; i < min(nkg, NKR) * F_NSUB; ++i) pass(false);
+      for (int i = 0; i < (s_hi - s_lo + 1) * nkg; ++i) pass(true);
+    }
+    return;
+  }
+  if (role == F_NSUB) {
+    // ---- producer: one thread issues every TMA load, in the order the
+    // consumers take the stages ----
+    if (threadIdx.x == F_NCONS) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map1)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map2)) : "memory");
+      int stage = 0, phase = 0;
+      for (int g = 0; g < ngroups; ++g) {
+        const int nkg = min(NK, a.nk - g * NK);
+        if (nkg > NKR) {   // the resident chunks, once the last group's products are done
+          if (g > 0) mbar_wait(smem_u32(&res_empty), (g - 1) & 1);
+          const uint32_t bar = smem_u32(&res_full);
+          mbar_expect_tx(bar, (nkg - NKR) * nj * F_A);
+          for (int k = NKR; k < nkg; ++k)
+            for (int jj = 0; jj < nj; ++jj)
+              tma_load(res_s + ((k - NKR) * F_NSUB + jj) * F_A, &map1, (g * NK + k) * F_CK,
+                       x0 + SUB * jj, y0, b, bar);
+        }
+        for (int k = 0; k < min(nkg, NKR); ++k)
+          for (int jj = 0; jj < F_NSUB; ++jj) {   // fm1 for registers: one sub-strip's chunk a stage
+            mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+            const uint32_t bar = smem_u32(&full[stage]);
+            if (jj < nj) {
+              mbar_expect_tx(bar, F_A);
+              tma_load(ring_s + stage * F_STAGE, &map1, (g * NK + k) * F_CK, x0 + SUB * jj, y0,
+                       b, bar);
+            } else {
+              mbar_arrive(bar);   // past the image: nothing to load
+            }
+            if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+          }
+        for (int s = s_lo; s <= s_hi; ++s)   // rows outside the image: nothing to load
+          for (int k = 0; k < nkg; ++k) {
+            mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+            const uint32_t bar = smem_u32(&full[stage]);
+            mbar_expect_tx(bar, F_RAW);
+            tma_load(ring_s + stage * F_STAGE, &map2, (g * NK + k) * F_CK, x0 - a.r, s, b, bar);
+            if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+          }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup `role` computes sub-strip j = role; its warp w
+  // the query row y0 + w. Every wgmma is issued on a path all 128 threads of
+  // the warpgroup take: a sub-strip past the image edge, or channels past
+  // C, are computed on stale data or zeros and dropped.
+  const int j = role, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  // A fragments, raw f32: chunk k, k step kk holds rows 16w + gq (+8) x
+  // channels 8kk + tq (+4) of the sub-strip's A, as wgmma reads A; the
+  // swizzled 128-byte row of an fm1 pixel puts them in 16-byte chunks 2kk
+  // (+1), XORed with the row (gq)
+  auto load_a = [&](uint32_t (&f)[4], uint32_t row, int kk) {
+    f[0] = lds32(row + (((2 * kk) ^ gq) << 4));
+    f[1] = lds32(row + 8 * ROWB + (((2 * kk) ^ gq) << 4));
+    f[2] = lds32(row + (((2 * kk + 1) ^ gq) << 4));
+    f[3] = lds32(row + 8 * ROWB + (((2 * kk + 1) ^ gq) << 4));
+  };
+  const uint32_t a_row = (16 * w + gq) * ROWB + 4 * tq;
+  uint32_t fa[NKR * 4][4];
+  float acc[16] = {};
+  // the band of source row s for query row y0 + w (mode 0: zeros, 1: set,
+  // 2: add to the tile); accumulator element i is (query m, column n) with
+  // m = lane/4 + 8*((i>>1)&1), n = 8*(i>>2) + 2*(lane%4) + (i&1), dx = n - m
+  auto band = [&](int s, int mode) {
+    const int dy = s - (y0 + w) + a.r;
+    if (dy < 0 || dy >= D || j >= nj) return;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int m = gq + 8 * ((i >> 1) & 1);
+      const int dx = 8 * (i >> 2) + 2 * tq + (i & 1) - m;
+      if (dx >= 0 && dx < D) {
+        float* o = so + (w * F_TXW + SUB * j + m) * DD + dx * D + dy;
+        const float v = acc[i] * a.scale;
+        *o = mode == 0 ? 0.f : mode == 1 ? v : *o + v;
+      }
+    }
+  };
+  for (int s = y0 - a.r; s < y0 + QR + a.r; ++s)
+    if (s < s_lo || s > s_hi) band(s, 0);   // zero outside the image
+
+  int stage = 0, phase = 0;
+  auto advance = [&]() {
+    if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+  };
+  // the warpgroup's 32 columns start at column 16j of the raw chunk and of
+  // its small parts (1 KB-aligned, so the 128-byte swizzle holds)
+  const uint32_t col_off = j * SUB * ROWB;
+  for (int g = 0; g < ngroups; ++g) {
+    const int nkg = min(NK, a.nk - g * NK);
+    // the register chunks of the group, one sub-strip's chunk a stage
+#pragma unroll
+    for (int k = 0; k < NKR; ++k) {
+      if (k >= nkg) break;
+#pragma unroll
+      for (int jj = 0; jj < F_NSUB; ++jj) {
+        mbar_wait(smem_u32(&ready[stage]), phase);
+        if (jj == j) {
+#pragma unroll
+          for (int kk = 0; kk < F_CK / 8; ++kk)
+            load_a(fa[k * 4 + kk], ring_s + stage * F_STAGE + a_row, kk);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_u32(&empty[stage]));
+        advance();
+      }
+    }
+    if (nkg > NKR) mbar_wait(smem_u32(&res_full), g & 1);   // the resident chunks
+
+    int prev = -1;
+    // the products of chunk k of one source row, fm1 from registers
+    // (`regs` true: k < NKR, a static index) or from the resident chunks
+    auto chunk = [&](int k, auto regs) {
+      mbar_wait(smem_u32(&ready[stage]), phase);   // landed, small parts written
+      const uint32_t st = ring_s + stage * F_STAGE;
+#pragma unroll
+      for (int kk = 0; kk < F_CK / 8; ++kk) {
+        // the small parts are double-buffered: those of the k step before
+        // last are rewritten only after its products have retired
+        wgmma_wait<1>();
+        if (kk == 1) {   // every product of the previous stage has retired
+          if (prev >= 0 && lane == 0) mbar_arrive(smem_u32(&empty[prev]));
+          prev = -1;
+        }
+        // A's big part is the raw fragment (the tensor core ignores a TF32
+        // operand's low 13 bits), its small part split here. A resident
+        // chunk's fragment is read here too: registers that in-flight
+        // products read are rewritten only after a wait retires them
+        uint32_t fk[4];
+        if constexpr (decltype(regs)::value) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) fk[e] = fa[k * 4 + kk][e];
+        } else {
+          load_a(fk, res_s + ((k - NKR) * F_NSUB + j) * F_A + a_row, kk);
+        }
+        uint32_t small[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) small[e] = tf32_small(fk[e]);
+        wgmma_fence();
+        const uint64_t db_big = wgmma_desc(st + col_off + kk * 32);
+        const uint64_t db_small = wgmma_desc(st + F_RAW + col_off + kk * 32);
+        wgmma_tf32(acc, small, db_big, (k | kk) != 0);
+        wgmma_tf32(acc, fk, db_small, 1);
+        wgmma_tf32(acc, fk, db_big, 1);
+        wgmma_commit();
+      }
+      prev = stage;
+      advance();
+    };
+    for (int s = s_lo; s <= s_hi; ++s) {
+      // unrolled over the register chunks only: ptxas serializes every
+      // wgmma of a source row unrolled to 96 (C7512) but pipelines 48, and
+      // a loop of resident chunks
+#pragma unroll
+      for (int k = 0; k < NKR; ++k) {
+        if (k >= nkg) break;
+        chunk(k, std::true_type());
+      }
+#pragma unroll 1
+      for (int k = NKR; k < nkg; ++k) chunk(k, std::false_type());
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(smem_u32(&empty[prev]));
+      prev = -1;
+      band(s, g == 0 ? 1 : 2);
+    }
+    __syncwarp();
+    if (nkg > NKR && lane == 0) mbar_arrive(smem_u32(&res_empty));   // resident chunks free
+  }
+
+  // every consumer warp's band is in the tile: store each query row's run
+  asm volatile("bar.sync 3, %0;\n" ::"n"(F_NCONS) : "memory");
+  const int nq = min(F_TXW, a.W - x0);
+  for (int q = 0; q < QR; ++q) {
+    const int y = y0 + q;
+    if (y >= a.H) break;
+    float* dst = out + ((static_cast<size_t>(b) * a.H + y) * a.W + x0) * DD;
+    const float* src = so + q * F_TXW * DD;
+    const int n = nq * DD;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {   // W % 4 == 0: 16-byte runs
+      const int nv = n / 4;
+      for (int e = threadIdx.x; e < nv; e += F_NCONS)
+        reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(src)[e];
+      done = nv * 4;
+    }
+    for (int e = done + threadIdx.x; e < n; e += F_NCONS) dst[e] = src[e];
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -568,22 +793,23 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// the NHWC bf16 tensor as a 4-d map (C, W, H, B), boxes of 64 channels x
-// bw columns x bh rows of one image, 128-byte swizzle, zeros out of bounds
-bool encode_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int bw,
-                int bh) {
+// the NHWC tensor as a 4-d map (C, W, H, B), boxes of bc channels (128
+// bytes) x bw columns x bh rows of one image, 128-byte swizzle, zeros out of
+// bounds
+bool encode_map(CUtensorMap* map, const void* ptr, bool f32, int B, int H, int W, int C,
+                int bc, int bw, int bh) {
   EncodeTiled fn = encode_fn();
   if (!fn) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t pix = static_cast<cuuint64_t>(C) * 2;
+  const cuuint64_t pix = static_cast<cuuint64_t>(C) * (f32 ? 4 : 2);
   const cuuint64_t strides[3] = {pix, pix * W, pix * W * H};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(CK), static_cast<cuuint32_t>(bw),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(bc), static_cast<cuuint32_t>(bw),
                              static_cast<cuuint32_t>(bh), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -619,8 +845,8 @@ cudaError_t launch_tc(const void* fm1, const void* fm2, void* out, int B, int H,
   cudaError_t e = select_kernel(p, &fn);
   if (e != cudaSuccess) return e;
   CUtensorMap map1, map2;
-  if (!encode_map(&map1, fm1, B, H, W, C, SUB, QR) ||
-      !encode_map(&map2, fm2, B, H, W, C, SCOLS, 1))
+  if (!encode_map(&map1, fm1, false, B, H, W, C, CK, SUB, QR) ||
+      !encode_map(&map2, fm2, false, B, H, W, C, CK, SCOLS, 1))
     return cudaErrorInvalidValue;
   const Args a{H, W, C, r, p.nk, p.nstage, scale};
   const dim3 grid((W + TXW - 1) / TXW, (H + QR - 1) / QR, B);
@@ -628,9 +854,48 @@ cudaError_t launch_tc(const void* fm1, const void* fm2, void* out, int B, int H,
   return cudaGetLastError();
 }
 
+typedef void (*F32Kernel)(CUtensorMap, CUtensorMap, float*, Args);
+
+template <int NK>
+cudaError_t f32_kernel(const F32Plan& p, F32Kernel* fn) {
+  static int allowed = 0;   // above 48 KB needs the opt-in, once per size
+  *fn = local_corr_f32_kernel<NK>;
+  if (p.smem <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      local_corr_f32_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e == cudaSuccess) allowed = p.smem;
+  return e;
+}
+
+cudaError_t select_f32_kernel(const F32Plan& p, F32Kernel* fn) {
+  if (p.nstage < 2) return cudaErrorInvalidValue;
+  switch (p.group_nk) {
+    case 1: return f32_kernel<1>(p, fn);
+    case 2: return f32_kernel<2>(p, fn);
+    case 4: return f32_kernel<4>(p, fn);
+    default: return f32_kernel<8>(p, fn);
+  }
+}
+
+cudaError_t launch_f32(const void* fm1, const void* fm2, void* out, int B, int H, int W,
+                       int C, int r, float scale, cudaStream_t stream) {
+  const F32Plan p = make_f32_plan(C, r);
+  F32Kernel fn;
+  cudaError_t e = select_f32_kernel(p, &fn);
+  if (e != cudaSuccess) return e;
+  CUtensorMap map1, map2;
+  if (!encode_map(&map1, fm1, true, B, H, W, C, F_CK, SUB, QR) ||
+      !encode_map(&map2, fm2, true, B, H, W, C, F_CK, F_SCOLS, 1))
+    return cudaErrorInvalidValue;
+  const Args a{H, W, C, r, p.nk, p.nstage, scale};
+  const dim3 grid((W + F_TXW - 1) / F_TXW, (H + QR - 1) / QR, B);
+  fn<<<grid, F_NT, p.smem, stream>>>(map1, map2, static_cast<float*>(out), a);
+  return cudaGetLastError();
+}
+
 bool valid_inputs(const void* fm1, const void* fm2, int B, int H, int W, int C, int r) {
-  // 16-byte loads / TMA boxes: aligned inputs, C a multiple of CC
-  return C > 0 && C % CC == 0 && B >= 1 && B <= 65535 && H >= 1 && H <= 65535 * QR &&
+  // TMA boxes: 16-byte aligned inputs and pixel strides, C a multiple of 16
+  return C > 0 && C % 16 == 0 && B >= 1 && B <= 65535 && H >= 1 && H <= 65535 * QR &&
          W >= 1 && r >= 1 && r <= 5 && reinterpret_cast<uintptr_t>(fm1) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(fm2) % 16 == 0;
 }
@@ -643,14 +908,7 @@ extern "C" int local_corr_f32(const void* fm1, const void* fm2, void* out,
                               int B, int H, int W, int C, int r, float scale,
                               void* stream) {
   if (!valid_inputs(fm1, fm2, B, H, W, C, r)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (r) {
-    case 1: return launch_fma<1>(fm1, fm2, out, B, H, W, C, scale, s);
-    case 2: return launch_fma<2>(fm1, fm2, out, B, H, W, C, scale, s);
-    case 3: return launch_fma<3>(fm1, fm2, out, B, H, W, C, scale, s);
-    case 4: return launch_fma<4>(fm1, fm2, out, B, H, W, C, scale, s);
-    default: return launch_fma<5>(fm1, fm2, out, B, H, W, C, scale, s);
-  }
+  return launch_f32(fm1, fm2, out, B, H, W, C, r, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int local_corr_bf16(const void* fm1, const void* fm2, void* out,
@@ -671,6 +929,25 @@ extern "C" int local_corr_bf16_plan(int C, int r, int* smem, int* stages,
   const cudaError_t e = select_kernel(p, &fn);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, NTC, p.smem);
+}
+
+// The f32 design's launch plan at (C, r): shared memory a block (bytes),
+// resident blocks an SM (the CUDA occupancy calculator), registers a thread
+// and local memory a thread (bytes; above 0 means ptxas spilled); returns a
+// cudaError_t.
+extern "C" int local_corr_f32_plan(int C, int r, int* smem, int* blocks_per_sm, int* regs,
+                                   int* local_bytes) {
+  const F32Plan p = make_f32_plan(C, r);
+  F32Kernel fn;
+  cudaError_t e = select_f32_kernel(p, &fn);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return e;
+  *smem = p.smem;
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, F_NT, p.smem);
 }
 
 extern "C" const char* local_corr_error_string(int err) {

@@ -85,6 +85,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             fn.restype = i
         lib.local_corr_bf16_plan.argtypes = [i, i, p, p, p]
         lib.local_corr_bf16_plan.restype = i
+        lib.local_corr_f32_plan.argtypes = [i, i, p, p, p, p]
+        lib.local_corr_f32_plan.restype = i
         lib.local_corr_error_string.argtypes = [i]
         lib.local_corr_error_string.restype = ctypes.c_char_p
     elif name == "local_corr_bwd":
@@ -150,6 +152,20 @@ def local_corr_bf16_plan(C: int, r: int) -> Dict[str, int]:
         msg = lib.local_corr_error_string(err).decode()
         raise RuntimeError(f"local_corr_bf16_plan failed: {msg} (cudaError {err})")
     return dict(zip(("smem_bytes", "stages", "blocks_per_sm"), (v.value for v in out)))
+
+
+def local_corr_f32_plan(C: int, r: int) -> Dict[str, int]:
+    """The f32 forward kernel's launch plan at (C, r): shared memory a block
+    (bytes), resident blocks an SM (the CUDA occupancy calculator), registers
+    a thread and local memory a thread (bytes; ptxas spills)."""
+    lib = load("local_corr")
+    out = [ctypes.c_int() for _ in range(4)]
+    err = lib.local_corr_f32_plan(C, r, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        msg = lib.local_corr_error_string(err).decode()
+        raise RuntimeError(f"local_corr_f32_plan failed: {msg} (cudaError {err})")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"),
+                    (v.value for v in out)))
 
 
 def local_corr_bwd_plan(bf16: bool, r: int) -> Dict[str, int]:

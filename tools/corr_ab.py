@@ -7,14 +7,17 @@
 diagnostic copy, e.g. with the loads or the products taken out) is timed
 but not checked. Each source is built with nvcc into its
 own library under ``build/`` (ignored by git; the ptxas report of every
-kernel but the f32 FMA instances printed), held against the plain version
-at the tiling edges and the eval shape, then all are timed in turns
-(A B C ... band band ... C B A) with ``rpnet_tpu_torch.utils.timing.cuda_ms``
-at the eval shape (26×64×64×256 bf16, r=5) beside the band kernel, and with
-``AB_F32=1`` also checked in f32 and timed at the training shape
-(48×64×64×256 f32). Needs a CUDA device and nvcc.
+kernel printed, and from its SASS the highest register, the HGMMAs and the
+waits for all of them, which show serialized wgmmas), held against the
+plain version at the tiling edges and the eval shape on NaN-filled outputs
+(each bf16 output also compared bit for bit with the first source's), then
+all are timed in turns (A B C ... band band ... C B A) with
+``rpnet_tpu_torch.utils.timing.cuda_ms`` at the eval shape (26×64×64×256
+bf16, r=5) beside the band kernel, and with ``AB_F32=1`` also checked in f32
+and timed at the training shape (48×64×64×256 f32) and the sweep shape
+(32×64×64×256 f32). Needs a CUDA device and nvcc.
 """
-import ctypes, os, subprocess, sys, time
+import ctypes, os, re, subprocess, sys, time
 from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))   # tools/ -> repo
 sys.path.insert(0, ROOT)
@@ -41,6 +44,21 @@ def nvcc(n_src):   # one nvcc per source, all started together
                                path], capture_output=True, text=True)
 
 
+def sass_stats(src, so):
+    """Per kernel of the library, from its SASS: the highest register used,
+    the HGMMAs, the waits for every outstanding HGMMA (one per HGMMA means
+    ptxas serialized them) and the local-memory stores (spills)."""
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True).stdout
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = fn.split("\n", 1)
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
+        name = re.sub(r".*?\d(local_corr_[a-z0-9_]*?kernel)ILi(\d+)E.*", r"\1<\2>", name.strip())
+        print(f"{src} | sass {name}: max register R{max(regs, default=0)}, "
+              f"{body.count('HGMMA')} HGMMA, {body.count('DEPBAR.LE gsb0, 0x0')} full waits, "
+              f"{len(re.findall(r'\bSTL', body))} STL", flush=True)
+
+
 with ThreadPoolExecutor(len(srcs) + 1) as pool:
     band = pool.submit(kernels.build, "local_corr_band")
     built = list(pool.map(nvcc, enumerate(srcs)))
@@ -49,13 +67,9 @@ for src, (so, proc) in zip(srcs, built):
     if proc.returncode:
         print("BUILD FAILED", src, proc.stderr[-4000:], flush=True)
         continue
-    rep = [l for l in proc.stderr.splitlines() if "fma_kernel" not in l]
-    keep = False
-    for l in rep:   # the report of every kernel but the f32 FMA instances
-        if "Compiling entry function" in l:
-            keep = "fma_kernel" not in l
-        if keep or "C75" in l:
-            print(src, "|", l, flush=True)
+    for l in proc.stderr.splitlines():   # ptxas: registers, spills, serialized wgmmas
+        print(src, "|", l, flush=True)
+    sass_stats(src, so)
     lib = ctypes.CDLL(so)
     p, i_ = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.local_corr_f32, lib.local_corr_bf16):
@@ -83,6 +97,7 @@ edges = [((3, 20, 20, 64), 2), ((2, 40, 100, 128), 5), ((1, 6, 72, 48), 5),
          ((1, 3, 5, 16), 5), ((2, 64, 64, 256), 4), ((26, 64, 64, 256), 5)]
 dts = (bf16, f32) if os.environ.get("AB_F32") else (bf16,)
 bad = {}
+first_bf16 = {}   # (edge, dtype) -> the first checked source's bf16 output
 for src, lib in libs.items():
     if src.startswith("time:"):   # a diagnostic copy: timed only
         continue
@@ -105,11 +120,17 @@ for src, lib in libs.items():
             err = (out.float() - ref).abs().max().item()
             if not ok:
                 bad[src] = True
+            same = ""
+            if dt == bf16:
+                ref0 = first_bf16.setdefault(n, out)
+                same = f", bit-identical to the first source: {torch.equal(out, ref0)}"
             print(f"check {src} {shape} r={r} {dt}: max err vs f32 sum {err:.3e} "
-                  f"{'ok' if ok else 'DISAGREES'}", flush=True)
+                  f"{'ok' if ok else 'DISAGREES'}{same}", flush=True)
 print("disagreeing:", sorted(bad), flush=True)
 
-cases = [((26, 64, 64, 256), bf16)] + ([((48, 64, 64, 256), f32)] if os.environ.get("AB_F32") else [])
+cases = [((26, 64, 64, 256), bf16)]
+if os.environ.get("AB_F32"):
+    cases += [((48, 64, 64, 256), f32), ((32, 64, 64, 256), f32)]
 for shape, dt in cases:
     fm1, fm2 = inputs(shape, dt, 0)
     out = torch.empty(shape[:3] + (121,), dtype=dt, device="cuda")
