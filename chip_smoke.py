@@ -8,8 +8,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      opt-in correlation forwards from ops/csrc/ (one nvcc per source, all
      started together) for sm_90a, printing ptxas' register/shared-memory
      report, the bf16 forward's design, shared memory and blocks an SM, the
-     f32 forward's and the backward's designs, shared memory, blocks an SM,
-     registers and spills;
+     f32 forward's, the C-strided kernel's (both dtypes) and the backward's
+     designs, shared memory, blocks an SM, registers and spills;
   2. kernels — call each kernel's wrapper on the card at the main paths'
      shapes, the eval shape (the first episode's query slices, 64×64,
      C=256, r=5, bf16), the training shape (48 slices, f32) and the
@@ -26,8 +26,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      (RPNET_ROT_EXTRACT=pdot, bf16, at C=256 — where it also matches the
      select kernel — and C=48), its packed slice pairs (RPNET_ROT_PACK=1,
      also with a partner slice 300× larger) and the C-strided kernel
-     (RPNET_CORR_IMPL=csub). Kernels and plain versions are timed with
-     CUDA events (``rpnet_tpu_torch.utils.timing.cuda_ms``);
+     (RPNET_CORR_IMPL=csub; also at the forward's edges and at C = 528, 576
+     past the fm1 it keeps resident, W = 12 and 40, r = 1, 2, in both
+     dtypes), all on NaN-poisoned outputs. Kernels and plain versions are
+     timed with CUDA events (``rpnet_tpu_torch.utils.timing.cuda_ms``);
   2b. sweep kernels — the kernel sweep's own two kernels
      (``rpnet_tpu_torch.bench_tools.corr_sweep``: corr_swapped, planar f32
      with dx outermost, and corr_rotmxu, the per-column band product with
@@ -117,6 +119,16 @@ TRAIN_SWITCHES = {"pallas_mxu": ({"RPNET_CORR_IMPL": "pallas_mxu"}, "local_corre
                                "local_correlation_packed")}
 VARIANT_TRAIN_EPISODES = 8                 # 2 steps of batch_size 4
 SWEEP_SHAPE = (32, 64, 64, 256)            # bench_tools/corr_sweep.py's shape (r=5)
+# the forward's tiling edges in (B, H, W, C) and r: ragged 20x20 and 3x5, W
+# past one 32- or 64-query strip, C = 16, 48 and 320, r = 1..5
+FWD_EDGES = (((3, 20, 20, 64), 2), ((2, 40, 100, 128), 5), ((1, 6, 72, 48), 5),
+             ((3, 20, 20, 64), 1), ((3, 20, 20, 64), 3), ((2, 16, 64, 320), 5),
+             ((1, 3, 5, 16), 5), ((2, 64, 64, 256), 4))
+# the csub kernel's besides (it transposes them to (B, H, C, W)): bf16 stages
+# by TMA where W % 8 == 0 and with plain loads elsewhere (W = 20, 100, 5, 12),
+# keeps fm1 resident up to C = 512 and streams it past (576, 528), at every r
+CSUB_EDGES = FWD_EDGES + (((1, 8, 40, 576), 3), ((1, 5, 12, 528), 2),
+                          ((2, 12, 48, 64), 1), ((2, 9, 40, 32), 2))
 
 
 def log(msg: str) -> None:
@@ -153,6 +165,8 @@ def corr_bound(shape, r: int, dtype_name: str, backward: bool = False):
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
+    import torch
+
     from rpnet_tpu_torch.ops import kernels
 
     t0 = time.time()
@@ -172,6 +186,17 @@ def phase_build():
         f"{fp['smem_bytes']} bytes of shared memory a block, "
         f"{fp['blocks_per_sm']} block(s) an SM, {fp['registers']} registers a thread, "
         f"{fp['local_bytes']} bytes of local memory a thread (spills) at C=256 r=5")
+    for dtype, design in ((torch.bfloat16, "TMA + wgmma m64n32k16 on MN-major operands "
+                           "(one producer warp, two consumer warpgroups, 4 rows x 32 queries "
+                           "a block, fm1 resident)"),
+                          (torch.float32, "TMA + register-blocked FP32 FMAs (one producer "
+                           "warp, 4 rows x 32 queries a block, a thread 2 queries x 4 rows "
+                           "of one source row, 8 channels a stage)")):
+        cp = kernels.local_corr_csub_plan(256, 5, dtype)
+        log(f"[build] local_corr_csub.cu {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+            f"design: {design}; {cp['smem_bytes']} bytes of shared memory a block, "
+            f"{cp['blocks_per_sm']} block(s) an SM, {cp['registers']} registers a thread, "
+            f"{cp['local_bytes']} bytes of local memory a thread (spills) at C=256 r=5")
     for bf16 in (False, True):
         bp = kernels.local_corr_bwd_plan(bf16, 5)
         log(f"[build] local_corr_bwd.cu {'bf16' if bf16 else 'f32'} design: transposed band "
@@ -328,6 +353,11 @@ def check_variant(kind: str, shape, r: int, dtype, seed: int, timed: bool,
     sc = torch.tensor([1.0, partner] * (B // 2) + [1.0] * (B % 2), device="cuda")
     fm1, fm2 = (x * sc[:, None, None, None] for x in (fm1, fm2))
     fm1, fm2 = fm1.to(dtype), fm2.to(dtype)
+    # poison: a block of the output's size, filled with NaN and freed, is
+    # what the wrapper's torch.empty gets back
+    poison = torch.full(shape[:3] + ((2 * r + 1) ** 2,), float("nan"), dtype=dtype,
+                        device="cuda")
+    del poison
     if kind == "pack":
         args = (tc.pack_pairs(fm1), tc.pack_pairs(fm2), r, W)
         kernel, plain = tc.local_correlation_packed, tc.local_correlation_packed_plain
@@ -1003,12 +1033,10 @@ def main() -> int:
     # the bf16 kernel's tiling edges: W past one 64-query strip, C not a
     # multiple of its 64-channel chunk, C past the 256 it keeps resident,
     # ragged 20x20, every radius class
-    edges = [((3, 20, 20, 64), 2), ((2, 40, 100, 128), 5), ((1, 6, 72, 48), 5),
-             ((3, 20, 20, 64), 1), ((3, 20, 20, 64), 3), ((2, 16, 64, 320), 5)]
+    edges = list(FWD_EDGES[:6])
     # the f32 kernel's: 32-query strips, 32-channel chunks, 256-channel
     # groups (C=320 takes two), C=16 half a chunk, r=4
-    fwd_edges = edges + [((1, 3, 5, 16), 5), ((2, 64, 64, 256), 4)]
-    for i, (shape, r) in enumerate(fwd_edges):
+    for i, (shape, r) in enumerate(FWD_EDGES):
         for j, dtype in enumerate((bf16, f32)):
             check_local_corr(shape, r, dtype, seed=30 + 2 * i + j, timed=False)
     train_shape = (4 * int(cfg["k"]), 64, 64, 256)    # E·k slices of the train step
@@ -1039,8 +1067,11 @@ def main() -> int:
     }
     variant_train = {kind: check_variant(kind, train_shape, 5, f32, seed=16 + i, timed=True)
                      for i, kind in enumerate(("band", "pack", "csub"))}
-    for i, (kind, dtype) in enumerate([(k, t) for k in ("band", "csub") for t in (bf16, f32)]):
-        check_variant(kind, ragged, 2, dtype, seed=20 + i, timed=False)
+    for i, dtype in enumerate((bf16, f32)):
+        check_variant("band", ragged, 2, dtype, seed=20 + i, timed=False)
+    for i, (shape, r) in enumerate(CSUB_EDGES):
+        for j, dtype in enumerate((bf16, f32)):
+            check_variant("csub", shape, r, dtype, seed=130 + 2 * i + j, timed=False)
     check_variant("pack", (4, 16, 64, 32), 5, f32, seed=24, timed=False, partner=300.0)
     check_variant("pack", (4, 16, 64, 32), 5, bf16, seed=25, timed=False, partner=30.0)
     check_variant("pdot", (4, 64, 64, 48), 5, bf16, seed=26, timed=False)

@@ -270,9 +270,6 @@ def local_correlation_csub(fm1t: torch.Tensor, fm2t: torch.Tensor, r: int) -> to
     _check_kernel_inputs("local_correlation_csub", fm1t, fm2t, r, max_batch=65535,
                          c_dim=2)
     B, H, C, W = fm1t.shape
-    if W % 4:
-        raise ValueError(f"local_correlation_csub: the kernel reads 4 columns at a "
-                         f"time; it needs W a multiple of 4 (got {W})")
     from rpnet_tpu_torch.ops import kernels
 
     out = torch.empty((B, H, W, (2 * r + 1) ** 2), dtype=fm1t.dtype, device=fm1t.device)

@@ -112,6 +112,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.local_corr_csub_f32, lib.local_corr_csub_bf16):
             fn.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, p]
             fn.restype = i
+        lib.local_corr_csub_plan.argtypes = [i, i, i, p, p, p, p]
+        lib.local_corr_csub_plan.restype = i
         lib.local_corr_csub_error_string.argtypes = [i]
         lib.local_corr_csub_error_string.restype = ctypes.c_char_p
     elif name == "local_corr_sweep":
@@ -241,6 +243,22 @@ def launch_local_corr_csub(fm1t: torch.Tensor, fm2t: torch.Tensor,
     if err != 0:
         msg = lib.local_corr_csub_error_string(err).decode()
         raise RuntimeError(f"local_corr_csub launch failed: {msg} (cudaError {err})")
+
+
+def local_corr_csub_plan(C: int, r: int, dtype: torch.dtype) -> Dict[str, int]:
+    """The C-strided kernel's launch plan at (C, r) in ``dtype``, on its TMA
+    path (W % 8 == 0 in bf16, W % 4 == 0 in f32): shared memory a block
+    (bytes), resident blocks an SM (the CUDA occupancy calculator), registers
+    a thread and local memory a thread (bytes; ptxas spills)."""
+    lib = load("local_corr_csub")
+    out = [ctypes.c_int() for _ in range(4)]
+    err = lib.local_corr_csub_plan(C, r, int(dtype == torch.bfloat16),
+                                   *(ctypes.byref(v) for v in out))
+    if err != 0:
+        msg = lib.local_corr_csub_error_string(err).decode()
+        raise RuntimeError(f"local_corr_csub_plan failed: {msg} (cudaError {err})")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"),
+                    (v.value for v in out)))
 
 
 def launch_local_corr_sweep(kind: str, fm1: torch.Tensor, fm2: torch.Tensor,

@@ -84,17 +84,28 @@ def test_band_plain_matches_pallas_mxu():
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
 
 
-def test_csub_plain_matches_pallas_csub():
-    """Row 6: ``_corr_csub_kernel`` in interpret mode, f32, 2×16×16×64, r=3
-    (atol 1e-5); the port's plain version takes the kernel's (B, H, C, W)
-    layout and gives (B, H, W, d²)."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_csub_plain_matches_pallas_csub(dtype):
+    """Row 6: ``_corr_csub_kernel`` in interpret mode, 2×16×16×64, r=3; the
+    port's plain version takes the kernel's (B, H, C, W) layout and gives
+    (B, H, W, d²). f32: atol 1e-5 (sums in another order). bf16: bit for
+    bit. The JAX kernel writes ``(fm1 * sub).astype(f32)`` with bf16
+    operands; in interpret mode its result is the f32 sum of the exact
+    products, rounded once, which is what the port computes."""
     f1, f2 = _inputs(1, (2, 16, 16, 64))
-    ref = np.asarray(pc.local_correlation_pallas_csub(jnp.asarray(f1), jnp.asarray(f2), 3,
-                                                      h_tile=8, interpret=True))
-    t1, t2 = (torch.from_numpy(np.ascontiguousarray(x.transpose(0, 1, 3, 2))) for x in (f1, f2))
+    if dtype == "bfloat16":
+        (j1, j2), (p1, p2) = _bf16_pair(f1, f2)
+    else:
+        j1, j2, p1, p2 = jnp.asarray(f1), jnp.asarray(f2), torch.from_numpy(f1), torch.from_numpy(f2)
+    ref = pc.local_correlation_pallas_csub(j1, j2, 3, h_tile=8, interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    t1, t2 = (x.transpose(2, 3).contiguous() for x in (p1, p2))
     out = tc.local_correlation_csub(t1, t2, 3)
-    assert out.shape == (2, 16, 16, 49)
-    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    assert out.shape == (2, 16, 16, 49) and out.dtype == t1.dtype
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(out.float().numpy(), ref)
+    else:
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype,partner", [("float32", 1.0), ("bfloat16", 1.0),
