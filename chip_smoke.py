@@ -8,8 +8,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      opt-in correlation forwards from ops/csrc/ (one nvcc per source, all
      started together) for sm_90a, printing ptxas' register/shared-memory
      report, the bf16 forward's design, shared memory and blocks an SM, the
-     f32 forward's, the C-strided kernel's (both dtypes) and the backward's
-     designs, shared memory, blocks an SM, registers and spills;
+     f32 forward's, the band kernel's and the C-strided kernel's (both
+     dtypes) and the backward's designs, shared memory, blocks an SM,
+     registers and spills;
   2. kernels — call each kernel's wrapper on the card at the main paths'
      shapes, the eval shape (the first episode's query slices, 64×64,
      C=256, r=5, bf16), the training shape (48 slices, f32) and the
@@ -24,8 +25,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      opt-in forwards likewise (``check_variant``): the tensor-core band
      kernel (RPNET_CORR_IMPL=pallas_mxu), its pdot epilogue
      (RPNET_ROT_EXTRACT=pdot, bf16, at C=256 — where it also matches the
-     select kernel — and C=48), its packed slice pairs (RPNET_ROT_PACK=1,
-     also with a partner slice 300× larger) and the C-strided kernel
+     select kernel — and C=48) and its packed slice pairs
+     (RPNET_ROT_PACK=1) at the eval and training shapes and at
+     ``BAND_EDGES`` (band at the forward's edges in both dtypes, pdot at
+     C = 48, 256, 320, pack at slice widths 64, 20, 100 and 8 in both
+     dtypes with a partner slice 300× (f32) or 30× (bf16) larger), and the
+     C-strided kernel
      (RPNET_CORR_IMPL=csub; also at the forward's edges and at C = 528, 576
      past the fm1 it keeps resident, W = 12 and 40, r = 1, 2, in both
      dtypes), all on NaN-poisoned outputs. Kernels and plain versions are
@@ -129,6 +134,16 @@ FWD_EDGES = (((3, 20, 20, 64), 2), ((2, 40, 100, 128), 5), ((1, 6, 72, 48), 5),
 # keeps fm1 resident up to C = 512 and streams it past (576, 528), at every r
 CSUB_EDGES = FWD_EDGES + (((1, 8, 40, 576), 3), ((1, 5, 12, 528), 2),
                           ((2, 12, 48, 64), 1), ((2, 9, 40, 32), 2))
+# the band kernel's (local_corr_band.cu): (kind, (B, H, W, C), r). Band at
+# the forward's edges, pdot at C = 48, 256 (a power-of-two scale, fm1 partly
+# in registers, partly resident) and 320 (fm1 streamed in bf16), pack on slice
+# pairs of widths 64, 20 (both slices in one block), 100 (a slice edge inside
+# a block) and 8, the second slice of each pair `partner` times larger
+BAND_EDGES = tuple(("band", shape, r) for shape, r in FWD_EDGES) + (
+    ("pdot", (3, 20, 20, 48), 2), ("pdot", (2, 16, 64, 256), 5), ("pdot", (1, 9, 40, 320), 3),
+    ("pack", (4, 16, 64, 32), 5), ("pack", (2, 20, 20, 64), 2), ("pack", (2, 6, 100, 48), 4),
+    ("pack", (4, 9, 8, 16), 1))
+BAND_PARTNER = {"float32": 300.0, "bfloat16": 30.0}
 
 
 def log(msg: str) -> None:
@@ -197,6 +212,18 @@ def phase_build():
             f"design: {design}; {cp['smem_bytes']} bytes of shared memory a block, "
             f"{cp['blocks_per_sm']} block(s) an SM, {cp['registers']} registers a thread, "
             f"{cp['local_bytes']} bytes of local memory a thread (spills) at C=256 r=5")
+    for dtype, design in ((torch.bfloat16, "band, pdot, pack: TMA + wgmma m64n32k16 (one "
+                           "producer warp, four consumer warpgroups, 4 rows x 64 queries a "
+                           "block, of fm1's 256 channels 192 in registers and 64 resident in "
+                           "shared memory)"),
+                          (torch.float32, "band, pack: TMA + wgmma m64n32k8 3xTF32 (one "
+                           "producer warp, two splitter warps, two consumer warpgroups, 4 rows "
+                           "x 32 queries a block)")):
+        bp = kernels.local_corr_band_plan(256, 5, dtype)
+        log(f"[build] local_corr_band.cu {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+            f"design: {design}; {bp['smem_bytes']} bytes of shared memory a block, "
+            f"{bp['blocks_per_sm']} block(s) an SM, {bp['registers']} registers a thread, "
+            f"{bp['local_bytes']} bytes of local memory a thread (spills) at C=256 r=5")
     for bf16 in (False, True):
         bp = kernels.local_corr_bwd_plan(bf16, 5)
         log(f"[build] local_corr_bwd.cu {'bf16' if bf16 else 'f32'} design: transposed band "
@@ -330,29 +357,77 @@ def check_autograd(shape, r: int, seed: int):
         raise AssertionError(f"autograd Function gradients disagree: {err}")
 
 
-def check_variant(kind: str, shape, r: int, dtype, seed: int, timed: bool,
-                  partner: float = 1.0):
-    """An opt-in forward's kernel vs its plain version on one input, through
-    the wrapper that launches it: ``band`` and ``pdot`` on (B, H, W, C),
-    ``pack`` on slice pairs packed to (B/2, H, 2W, C) (the second slice of
-    each pair ``partner`` times larger), ``csub`` on (B, H, C, W). Tolerances:
-    f32 atol 1e-4 (times the slice scale² for pack: 3xTF32 products, or f32
-    FMAs, summed in another order); bf16 kernel and plain version both within
-    rtol 2**-7, atol 1e-3 of the f32 sum (one bf16 ulp); pdot both within
-    2**-6 relative, atol 1e-3 of f32(S)·bf16(scale) (its two roundings).
-    Raises on disagreement."""
+def variant_inputs(shape, dtype, seed: int, partner: float = 1.0):
+    """fm1, fm2 (B, H, W, C) in ``dtype`` on the card from a seed, the second
+    slice of each pair ``partner`` times larger, and those per-slice scales."""
     import torch
 
-    from rpnet_tpu_torch.ops import correlation as tc
-    from rpnet_tpu_torch.utils.timing import cuda_ms
-
-    B, H, W, C = shape
+    B = shape[0]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     fm1 = torch.randn(shape, generator=gen, device="cuda")
     fm2 = torch.randn(shape, generator=gen, device="cuda")
     sc = torch.tensor([1.0, partner] * (B // 2) + [1.0] * (B % 2), device="cuda")
     fm1, fm2 = (x * sc[:, None, None, None] for x in (fm1, fm2))
-    fm1, fm2 = fm1.to(dtype), fm2.to(dtype)
+    return fm1.to(dtype), fm2.to(dtype), sc
+
+
+def variant_verdict(kind: str, out, ref, fm1, fm2, r: int, sc, res: dict):
+    """Whether an opt-in forward's output ``out`` (and its plain version's
+    ``ref``), both (B, H, W, d²), are right on the inputs of
+    :func:`variant_inputs`; returns (ok, the tolerance's text) and adds what
+    it measured to ``res``. Tolerances: f32 atol 1e-4 (times the slice
+    scale² where the slices differ: 3xTF32 products, or f32 FMAs, summed in
+    another order); bf16 kernel and plain version both within rtol 2**-7,
+    atol 1e-3 of the f32 sum (one bf16 ulp); pdot both within 2**-6
+    relative, atol 1e-3 of f32(S)·bf16(scale) (its two roundings)."""
+    import torch
+
+    from rpnet_tpu_torch.ops import correlation as tc
+
+    C = fm1.shape[-1]
+    dtype = fm1.dtype
+    sums = tc._corr_sums(fm1.float(), fm2.float(), r)
+    if kind == "pdot":
+        scale_bf = float(torch.tensor(tc.correlation_scale(C), dtype=torch.bfloat16))
+        exact = sums * scale_bf
+        ok = all(torch.allclose(x.float(), exact, rtol=2 ** -6, atol=1e-3) for x in (out, ref))
+        tol = "rtol 2**-6, atol 1e-3 of f32(S)*bf16(scale)"
+        res["unequal_to_plain"] = (out != ref).float().mean().item()
+        if C == 256:   # power-of-two scale: the select kernel's value
+            sel = tc.local_correlation(fm1, fm2, r)
+            torch.cuda.synchronize()
+            res["unequal_to_select_kernel"] = (out != sel).float().mean().item()
+            ok = ok and torch.allclose(out.float(), sel.float(), rtol=2 ** -7, atol=1e-3)
+            ok = ok and torch.equal(ref, tc.local_correlation_plain(fm1, fm2, r))
+    elif dtype == torch.bfloat16:
+        f32 = sums * tc.correlation_scale(C)
+        ok = all(torch.allclose(x.float(), f32, rtol=2 ** -7, atol=1e-3) for x in (out, ref))
+        tol = "rtol 2**-7, atol 1e-3 of the f32 sum"
+    else:
+        slice_sq = (sc ** 2)[:, None, None, None]
+        err_scaled = ((out - ref).abs() / slice_sq).max().item()
+        ok = err_scaled <= 1e-4
+        tol = "atol 1e-4" + (" x slice scale²" if bool((sc != 1).any()) else "")
+        if kind == "pack":   # the packed function is the unpacked one
+            direct = tc.local_correlation_plain(fm1, fm2, r)
+            ok = ok and ((out - direct).abs() / slice_sq).max().item() <= 1e-4
+    return ok, tol
+
+
+def check_variant(kind: str, shape, r: int, dtype, seed: int, timed: bool,
+                  partner: float = 1.0):
+    """An opt-in forward's kernel vs its plain version on one input, through
+    the wrapper that launches it: ``band`` and ``pdot`` on (B, H, W, C),
+    ``pack`` on slice pairs packed to (B/2, H, 2W, C) (the second slice of
+    each pair ``partner`` times larger), ``csub`` on (B, H, C, W), with the
+    tolerances of :func:`variant_verdict`. Raises on disagreement."""
+    import torch
+
+    from rpnet_tpu_torch.ops import correlation as tc
+    from rpnet_tpu_torch.utils.timing import cuda_ms
+
+    W = shape[2]
+    fm1, fm2, sc = variant_inputs(shape, dtype, seed, partner)
     # poison: a block of the output's size, filled with NaN and freed, is
     # what the wrapper's torch.empty gets back
     poison = torch.full(shape[:3] + ((2 * r + 1) ** 2,), float("nan"), dtype=dtype,
@@ -375,33 +450,9 @@ def check_variant(kind: str, shape, r: int, dtype, seed: int, timed: bool,
         out, ref = unpack(out), unpack(ref)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    sums = tc._corr_sums(fm1.float(), fm2.float(), r)
     name = str(dtype).replace("torch.", "")
     res = {"shape": list(shape), "r": r, "dtype": name, "max_abs_err": err}
-    if kind == "pdot":
-        scale_bf = float(torch.tensor(tc.correlation_scale(C), dtype=torch.bfloat16))
-        exact = sums * scale_bf
-        ok = all(torch.allclose(x.float(), exact, rtol=2 ** -6, atol=1e-3) for x in (out, ref))
-        tol = "rtol 2**-6, atol 1e-3 of f32(S)*bf16(scale)"
-        res["unequal_to_plain"] = (out != ref).float().mean().item()
-        if C == 256:   # power-of-two scale: the select kernel's value
-            sel = tc.local_correlation(fm1, fm2, r)
-            torch.cuda.synchronize()
-            res["unequal_to_select_kernel"] = (out != sel).float().mean().item()
-            ok = ok and torch.allclose(out.float(), sel.float(), rtol=2 ** -7, atol=1e-3)
-            ok = ok and torch.equal(ref, tc.local_correlation_plain(fm1, fm2, r))
-    elif dtype == torch.bfloat16:
-        f32 = sums * tc.correlation_scale(C)
-        ok = all(torch.allclose(x.float(), f32, rtol=2 ** -7, atol=1e-3) for x in (out, ref))
-        tol = "rtol 2**-7, atol 1e-3 of the f32 sum"
-    else:
-        slice_sq = (sc ** 2)[:, None, None, None]
-        err_scaled = ((out - ref).abs() / slice_sq).max().item()
-        ok = err_scaled <= 1e-4
-        tol = "atol 1e-4" + (" x slice scale²" if partner != 1.0 else "")
-        if kind == "pack":   # the packed function is the unpacked one
-            direct = tc.local_correlation_plain(fm1, fm2, r)
-            ok = ok and ((out - direct).abs() / slice_sq).max().item() <= 1e-4
+    ok, tol = variant_verdict(kind, out, ref, fm1, fm2, r, sc, res)
     wrapper = kernel.__name__
     if timed:
         res["ms"] = cuda_ms(lambda: kernel(*args), reps=20)
@@ -1058,7 +1109,6 @@ def main() -> int:
     # the opt-in forwards (RPNET_CORR_IMPL / RPNET_ROT_EXTRACT / RPNET_ROT_PACK)
     eval_shape = (dq[0], 64, 64, 256)
     even = next((b for b in dq if b % 2 == 0), dq[0] + 1)   # pack takes pairs
-    ragged = (3, 20, 20, 64)
     variant = {
         "band": check_variant("band", eval_shape, 5, bf16, seed=12, timed=True),
         "pdot": check_variant("pdot", eval_shape, 5, bf16, seed=13, timed=True),
@@ -1067,13 +1117,14 @@ def main() -> int:
     }
     variant_train = {kind: check_variant(kind, train_shape, 5, f32, seed=16 + i, timed=True)
                      for i, kind in enumerate(("band", "pack", "csub"))}
-    for i, dtype in enumerate((bf16, f32)):
-        check_variant("band", ragged, 2, dtype, seed=20 + i, timed=False)
+    for i, (kind, shape, r) in enumerate(BAND_EDGES):
+        for j, dtype in enumerate((bf16, f32) if kind != "pdot" else (bf16,)):
+            partner = BAND_PARTNER[str(dtype).replace("torch.", "")] if kind == "pack" else 1.0
+            check_variant(kind, shape, r, dtype, seed=200 + 2 * i + j, timed=False,
+                          partner=partner)
     for i, (shape, r) in enumerate(CSUB_EDGES):
         for j, dtype in enumerate((bf16, f32)):
             check_variant("csub", shape, r, dtype, seed=130 + 2 * i + j, timed=False)
-    check_variant("pack", (4, 16, 64, 32), 5, f32, seed=24, timed=False, partner=300.0)
-    check_variant("pack", (4, 16, 64, 32), 5, bf16, seed=25, timed=False, partner=30.0)
     check_variant("pdot", (4, 64, 64, 48), 5, bf16, seed=26, timed=False)
 
     # the kernel sweep: its own two kernels (rows 8 and 9), then the sweep

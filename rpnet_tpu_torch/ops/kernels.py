@@ -105,6 +105,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                    lib.local_corr_pdot_bf16):
             fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
             fn.restype = i
+        lib.local_corr_band_plan.argtypes = [i, i, i, p, p, p, p]
+        lib.local_corr_band_plan.restype = i
         lib.local_corr_band_error_string.argtypes = [i]
         lib.local_corr_band_error_string.restype = ctypes.c_char_p
     elif name == "local_corr_csub":
@@ -225,6 +227,22 @@ def launch_local_corr_band(mode: str, fm1: torch.Tensor, fm2: torch.Tensor,
         msg = lib.local_corr_band_error_string(err).decode()
         raise RuntimeError(f"local_corr_band ({mode}) launch failed: {msg} "
                            f"(cudaError {err})")
+
+
+def local_corr_band_plan(C: int, r: int, dtype: torch.dtype) -> Dict[str, int]:
+    """The band kernel's launch plan at (C, r) in ``dtype``: shared memory a
+    block (bytes), resident blocks an SM (the CUDA occupancy calculator), and
+    the BAND instance's registers a thread and local memory a thread (bytes;
+    ptxas spills)."""
+    lib = load("local_corr_band")
+    out = [ctypes.c_int() for _ in range(4)]
+    err = lib.local_corr_band_plan(int(dtype == torch.bfloat16), C, r,
+                                   *(ctypes.byref(v) for v in out))
+    if err != 0:
+        msg = lib.local_corr_band_error_string(err).decode()
+        raise RuntimeError(f"local_corr_band_plan failed: {msg} (cudaError {err})")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"),
+                    (v.value for v in out)))
 
 
 def launch_local_corr_csub(fm1t: torch.Tensor, fm2t: torch.Tensor,
