@@ -36,12 +36,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
      dtypes), all on NaN-poisoned outputs. Kernels and plain versions are
      timed with CUDA events (``rpnet_tpu_torch.utils.timing.cuda_ms``);
   2b. sweep kernels — the kernel sweep's own two kernels
-     (``rpnet_tpu_torch.bench_tools.corr_sweep``: corr_swapped, planar f32
-     with dx outermost, and corr_rotmxu, the per-column band product with
-     128 zero-padded lanes or d²) against their plain versions at the
-     sweep shape (32×64×64×256, r=5; f32 and bf16, every h_tile instance,
-     both full_lanes and both out_f32) and at the edge shapes where
-     H + 2r <= 128, on outputs the caching allocator had filled with NaN;
+     (``rpnet_tpu_torch.bench_tools.corr_sweep``, both on the band body of
+     tensor-core products: corr_swapped, planar f32, and corr_rotmxu, NHWC
+     with d² or 128 zero-padded lanes) against their plain versions at the
+     sweep shape (32×64×64×256, r=5; f32 and bf16, every h_tile, both
+     full_lanes and both out_f32;
+     corr_swapped timed as the kernel alone and through its wrapper's
+     transpose and cast) and at ``SWEEP_EDGES`` in both dtypes (corr_rotmxu
+     with d² and 128 lanes), on outputs the caching allocator had filled
+     with NaN; padding lanes exactly zero;
   2c. the kernel sweep — ``corr_sweep.main()`` at 32×64×64×256, r=5, with
      the launch counts set to 0 just before and read just after: no line
      FAILED or missed its tolerance, and each kernel launched as often as
@@ -144,6 +147,14 @@ BAND_EDGES = tuple(("band", shape, r) for shape, r in FWD_EDGES) + (
     ("pack", (4, 16, 64, 32), 5), ("pack", (2, 20, 20, 64), 2), ("pack", (2, 6, 100, 48), 4),
     ("pack", (4, 9, 8, 16), 1))
 BAND_PARTNER = {"float32": 300.0, "bfloat16": 30.0}
+# the sweep kernels' (local_corr_sweep.cu, the band body's tiling: 4 rows x
+# 64 queries in bf16, 32 in f32): W short of, past and off one strip (20,
+# 100, 72, 24, 44, 36) and not a multiple of 4 (5, 18: scalar planar
+# stores), C = 16, 48, 64, 128 and 320 (f32 in two channel groups), r = 1..5,
+# H = 100 (25 rows of blocks), ragged H
+SWEEP_EDGES = FWD_EDGES[:7] + (((2, 64, 24, 64), 1), ((2, 64, 24, 64), 3),
+                               ((1, 100, 16, 64), 5), ((2, 12, 44, 48), 4),
+                               ((1, 100, 36, 320), 4), ((2, 9, 18, 48), 2))
 
 
 def log(msg: str) -> None:
@@ -224,6 +235,19 @@ def phase_build():
             f"design: {design}; {bp['smem_bytes']} bytes of shared memory a block, "
             f"{bp['blocks_per_sm']} block(s) an SM, {bp['registers']} registers a thread, "
             f"{bp['local_bytes']} bytes of local memory a thread (spills) at C=256 r=5")
+    for kind, design in (("swapped", "corr_swapped: the band body (TMA + wgmma, bf16 m64n32k16, "
+                          "f32 m64n32k8 3xTF32) writing f32 planes, in bf16 each source "
+                          "row's band through a 16 x d slot a warp, in f32 from the NHWC "
+                          "tile at the block's end"),
+                         ("rotmxu", "corr_rotmxu: the band body, NHWC tile of d^2 lanes, "
+                          "128 lanes zero-filled at the store")):
+        for dtype in (torch.bfloat16, torch.float32):
+            sp = kernels.local_corr_sweep_plan(kind, 256, 5, dtype)
+            log(f"[build] local_corr_sweep.cu {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+                f"{design}; {sp['smem_bytes']} bytes of shared memory a block, "
+                f"{sp['stages']} ring stages, {sp['blocks_per_sm']} block(s) an SM, "
+                f"{sp['registers']} registers a thread, {sp['local_bytes']} bytes of local "
+                "memory a thread (spills) at C=256 r=5")
     for bf16 in (False, True):
         bp = kernels.local_corr_bwd_plan(bf16, 5)
         log(f"[build] local_corr_bwd.cu {'bf16' if bf16 else 'f32'} design: transposed band "
@@ -525,6 +549,13 @@ def check_sweep_kernel(kind: str, shape, r: int, dtype, seed: int, timed: bool,
         res["ms"] = cuda_ms(kernel, reps=20)
         res["plain_ms"] = cuda_ms(plain, reps=3)
         res["bound_ms"], res["bound_by"], res["bound_unit"] = corr_bound(shape, r, name)
+    if timed and kind == "swapped":   # the kernel alone, on its planar f32 output
+        from rpnet_tpu_torch.ops import kernels
+        from rpnet_tpu_torch.ops.correlation import correlation_scale
+
+        planar = torch.empty((B, d2, H, W), dtype=torch.float32, device="cuda")
+        res["kernel_ms"] = cuda_ms(lambda: kernels.launch_local_corr_sweep(
+            "swapped", fm1, fm2, planar, r, h_tile, correlation_scale(C)), reps=20)
     wrapper = f"corr_{kind}"
     log(f"[sweep-kernels] {wrapper} {json.dumps(res)} ({tol}: {'ok' if ok else 'DISAGREES'})")
     if not ok or not math.isfinite(err):
@@ -533,13 +564,13 @@ def check_sweep_kernel(kind: str, shape, r: int, dtype, seed: int, timed: bool,
     return res
 
 
-def phase_sweep_kernels(edges):
+def phase_sweep_kernels():
     """Rows 8 and 9 (the kernel sweep's own kernels) against their plain
-    versions: at the sweep shape in both dtypes, every h_tile instance of
-    corr_swapped and every output option of corr_rotmxu; then at the edge
-    shapes (those of local_corr.cu, plus H=64 at r=1 and 3 and H=100, where
-    rotmxu's second 64-row block starts), where H + 2r <= 128 allows.
-    Returns the timed results, keyed (kind, dtype name)."""
+    versions: at the sweep shape in both dtypes, every h_tile of corr_swapped
+    (timed as the kernel alone and through the wrapper) and every output
+    option of corr_rotmxu; then at ``SWEEP_EDGES`` in both dtypes, corr_rotmxu
+    with d² and with 128 lanes. Returns the timed results, keyed (kind,
+    dtype name)."""
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -559,15 +590,13 @@ def phase_sweep_kernels(edges):
                            out_f32=False)
         check_sweep_kernel("rotmxu", SWEEP_SHAPE, 5, dtype, seed=50 + i, timed=False,
                            full_lanes=True, out_f32=False)
-    more = [((2, 64, 24, 64), 1), ((2, 64, 24, 64), 3), ((1, 100, 16, 64), 5)]
-    for i, (shape, r) in enumerate(edges + more):
-        if shape[1] + 2 * r > 128:
-            continue
+    for i, (shape, r) in enumerate(SWEEP_EDGES):
         for j, dtype in enumerate((bf16, f32)):
             check_sweep_kernel("swapped", shape, r, dtype, seed=60 + 4 * i + j, timed=False,
                                h_tile=(8, 16, 32)[(i + j) % 3])
-            check_sweep_kernel("rotmxu", shape, r, dtype, seed=62 + 4 * i + j, timed=False,
-                               full_lanes=(i + j) % 2 == 0, out_f32=i % 2 == 0)
+            for full in (False, True):
+                check_sweep_kernel("rotmxu", shape, r, dtype, seed=62 + 4 * i + j, timed=False,
+                                   full_lanes=full, out_f32=i % 2 == 0)
     return timed
 
 
@@ -1128,7 +1157,7 @@ def main() -> int:
     check_variant("pdot", (4, 64, 64, 48), 5, bf16, seed=26, timed=False)
 
     # the kernel sweep: its own two kernels (rows 8 and 9), then the sweep
-    sweep_timed = phase_sweep_kernels(edges)
+    sweep_timed = phase_sweep_kernels()
     sweep_launches = phase_sweep()
 
     _, launches, default_outputs = phase_main_path(yaml_path)
@@ -1152,7 +1181,9 @@ def main() -> int:
                 "launches": n_launches, "max_abs_err": res["max_abs_err"],
                 "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "bound_unit": res["bound_unit"],
-                "library_ms": None}      # no single PyTorch call computes it
+                "library_ms": None,      # no single PyTorch call computes it
+                # corr_swapped: its kernel alone, before the wrapper's transpose
+                **({"kernel_ms": res["kernel_ms"]} if "kernel_ms" in res else {})}
 
     def opt_in(wrapper):   # launches over the path runs that select it
         return sum(run.get(wrapper, 0) for run in

@@ -20,7 +20,8 @@ it and prints its time and ``maxerr`` (largest |out - reference|):
   pallas-csub f32 / bf16 ht=*           ``local_corr_csub.cu`` with its
                                         transposes (one line each)
   pallas-swapped f32 / bf16 ht=*        :func:`corr_swapped` (``h_tile`` is
-                                        the kernel's rows a block)
+                                        accepted for signature parity: one
+                                        kernel for the three f32 lines)
   pallas-rotmxu f32 / bf16 wt=*,        :func:`corr_rotmxu` (``w_tile`` is a
   bf16out                               TPU tile size: one line each; plus a
                                         ``full_lanes`` line)
@@ -86,11 +87,14 @@ def corr_swapped_plain(fm1: torch.Tensor, fm2: torch.Tensor, r: int,
 def corr_swapped(fm1: torch.Tensor, fm2: torch.Tensor, r: int,
                  h_tile: int = 16) -> torch.Tensor:
     """``_corr_kernel_swapped`` (``bench_tools/corr_sweep.py:37``): the local
-    correlation with dx outermost, written planar (B, d², H, W) in f32 by
-    a kernel of ``ops/csrc/local_corr_sweep.cu``, then transposed to
-    (B, H, W, d²) and cast to fm1's dtype as the JAX wrapper does (``:95``).
-    ``h_tile`` is the query rows a block (8, 16 or 32). A CPU tensor goes to
-    :func:`corr_swapped_plain`; a CUDA tensor launches the kernel or raises."""
+    correlation written planar (B, d², H, W) in f32, channel dx·d + dy, by a
+    tensor-core band kernel of ``ops/csrc/local_corr_sweep.cu`` (bf16 stores
+    each source row's band once it is multiplied, f32 its tile at the
+    block's end), then transposed to (B, H, W, d²) and cast to fm1's dtype
+    as the JAX wrapper does (``:95``). ``h_tile`` (8, 16 or 32, the TPU kernel's rows a grid step) is
+    accepted for signature parity: the Hopper kernel's block owns 4 query
+    rows whatever it is. A CPU tensor goes to :func:`corr_swapped_plain`; a
+    CUDA tensor launches the kernel or raises."""
     if _on_cpu(fm1, fm2):
         return corr_swapped_plain(fm1, fm2, r, h_tile)
     _check_kernel_inputs("corr_swapped", fm1, fm2, r, max_batch=65535)
@@ -135,17 +139,17 @@ def corr_rotmxu_plain(fm1: torch.Tensor, fm2: torch.Tensor, r: int, w_tile: int 
 def corr_rotmxu(fm1: torch.Tensor, fm2: torch.Tensor, r: int, w_tile: int = 16,
                 full_lanes: bool = False, out_f32: bool = True) -> torch.Tensor:
     """``_corr_rot_kernel`` of the sweep (``bench_tools/corr_sweep.py:100``):
-    the local correlation as a tensor-core band product per (image, query
-    column, horizontal shift) (``ops/csrc/local_corr_sweep.cu``), written
+    the local correlation as tensor-core band products on NHWC
+    (``ops/csrc/local_corr_sweep.cu``, the band kernel's body), written
     (B, H, W, d²) in fm1's dtype, or (B, H, W, 128) with channels d²..127
     zero when ``full_lanes`` (the next 1x1 conv can take K = 128). Needs
     H + 2r <= 128, as the JAX variant asserts (``:164``).
 
     ``w_tile`` is the TPU kernel's VMEM tile (query columns a grid step),
-    accepted for signature parity; the Hopper kernel takes one column a
-    block. ``out_f32`` changes no value: the TPU variant's f32 output is
-    cast to fm1's dtype by its wrapper, so both store the f32 sum rounded
-    once. A CPU tensor goes to :func:`corr_rotmxu_plain`; a CUDA tensor
+    accepted for signature parity; the Hopper kernel's block owns 4 query
+    rows × 64 (bf16) or 32 (f32) queries. ``out_f32`` changes no value: the
+    TPU variant's f32 output is cast to fm1's dtype by its wrapper, so both
+    store the f32 sum rounded once. A CPU tensor goes to :func:`corr_rotmxu_plain`; a CUDA tensor
     launches the kernel or raises."""
     if _on_cpu(fm1, fm2):
         return corr_rotmxu_plain(fm1, fm2, r, w_tile, full_lanes, out_f32)

@@ -1,578 +1,1072 @@
 // The local-correlation kernel sweep's two own kernels, hand-written for
-// Hopper (sm_90a). Plain C entry points, built by
-// rpnet_tpu_torch/ops/kernels.py with nvcc and loaded with ctypes.
+// Hopper (sm_90a) as tensor-core band products. Plain C entry points, built
+// by rpnet_tpu_torch/ops/kernels.py with nvcc and loaded with ctypes.
 //
-// Both compute the CRE's local correlation,
+// Both compute the CRE's local correlation in the quirk channel order,
 //
 //   S[b,y,x,dx*d+dy] = sum_c f32(fm1[b,y,x,c]) * f32(fm2[b,y+dy-r,x+dx-r,c]),
 //
 // d = 2r+1, zero outside the image, summed in f32 and scaled by f32(1/sqrt C),
-// in the layouts and loop orders of the two variants that
-// bench_tools/corr_sweep.py writes for the TPU:
+// in the layouts of the two variants bench_tools/corr_sweep.py writes for
+// the TPU:
 //
 // * corr_swapped (local_corr_swapped_{f32,bf16}) replaces
-//   _corr_kernel_swapped (bench_tools/corr_sweep.py:37): FP32 FMAs with the
-//   horizontal shift dx outermost, writing planar (B, d^2, H, W) f32.
-//   Bound at the sweep shape (32 slices, 64x64, C=256, r=5): the function
-//   reads fm1 and fm2 once and writes d^2 planes, 0.0991 ms f32 / 0.0495 ms
-//   bf16 at 3.35 TB/s. This body is bound by its loop order instead: dx
-//   outermost makes a block read its fm1 tile and fm2 window once per dx,
-//   and the inputs (268 MB f32) do not stay in the 50 MB L2 between dx, so
-//   it moves d x the input bytes from device memory (3.9 GB f32, 1.16 ms at
-//   3.35 TB/s). PERF.md has the versions and readings.
-//   Design. A block owns HT = h_tile query rows x 64 columns of one image;
-//   256 threads, thread (column, row group) keeps HT/4 vertically adjacent
-//   queries. The full output tile (HT x 64 x 121 values: 484 a thread at
-//   HT=16) does not fit in registers; one dx's share (HT/4 x d: 44 a thread)
-//   does, so dx runs outermost, as on the TPU: for each dx the block streams
-//   C through shared memory (a cp.async ring of up to 4 stages, 32 channel
-//   bytes a pixel a stage at HT <= 16, 16 at HT = 32), each stage holding
-//   the fm1 tile and the dx-shifted fm2 window (HT+2r rows x 64 columns,
-//   zero outside the image) in 16-byte channel planes (a warp's 16-byte
-//   reads are 32 consecutive pixels: no bank conflicts). Each thread's
-//   copies are planned once per dx (source addresses and a validity mask);
-//   a step only adds its channel offset. A thread reads
-//   HT/4 fm1 vectors and HT/4+2r fm2 vectors per piece for HT/4 x d dot
-//   products (reuse along y within the thread). After the last channel of a
-//   dx it stores its d sums a query as d planes of the output: a warp
-//   writes 32 consecutive columns of one (channel, row), 128-byte coalesced
-//   stores. bf16 inputs are widened to f32 in registers (exact products).
-//   The wrapper transposes and casts, as the TPU variant's does.
-//
+//   _corr_kernel_swapped (bench_tools/corr_sweep.py:37): it writes the planar
+//   (B, d^2, H, W) f32 tensor that kernel writes (the wrapper transposes and
+//   casts, as the JAX wrapper does). The TPU kernel's dx-outermost loop is a
+//   device for its lane rotations; what it computes is the planar tensor,
+//   and nothing here needs that order. h_tile is accepted for signature
+//   parity: a block always owns 4 query rows.
 // * corr_rotmxu (local_corr_rotmxu_{f32,bf16}) replaces _corr_rot_kernel
-//   (bench_tools/corr_sweep.py:100): a tensor-core band product per (image,
-//   query column w, horizontal shift du), the TPU variant's (B, W, H, C)
-//   space read straight from NHWC (a column's pixels are W*C elements
-//   apart; no transpose copy). Output (B, H, W, lanes) in fm1's dtype, the
-//   f32 sum scaled and rounded once: lanes = 128 with channels d^2..127
-//   written as zeros (full_lanes, the next 1x1 conv's K = 128), or d^2.
-//   Bound as corr_swapped's (full_lanes adds 7/121 output bytes; the bound
-//   stays the function's); what bounds this body is the bytes its blocks
-//   pull through L2 (each source column is staged by (4+2r)/4 blocks).
-//   Design. A block owns 4 query columns w0..w0+3 x 16 query rows h0..h0+15
-//   (one m-tile) of one image, with one warp per shift du (d warps). Per
-//   64-byte channel step (two MMA k-steps) a 6-stage cp.async ring stages
-//   the 64 queries and the 32 source rows h0-r .. h0-r+31 of the 4+2r
-//   source columns w0-r .. w0+3+r (zero outside the image; rows past the
-//   band only pad the n-tiles), 64 bytes a pixel with the 16-byte chunks
-//   swizzled so fragment reads hit 32 banks; each thread's copies are
-//   planned once per block. Warp du multiplies each query column c (16
-//   queries) against the four n8 tiles of source column c+du's 32 rows (the
-//   band j in [h, h+2r] of every query lies inside them: the TPU's N = 128
-//   padded rows cut to 32): 64 accumulators a thread. bf16: mma.sync
-//   m16n8k16, f32 accumulators (exact products). f32: 3xTF32 on m16n8k8,
-//   each operand split by masking into a TF32 value and its exact f32
-//   remainder (the dropped small*small term leaves about 2^-19 of each
-//   product). The band element (query m, source row j) lands at channel
-//   du*d + (j - m) of a (16, 4, 128) output tile in shared memory, zeroed
-//   first so unused lanes are zero, never stale; the block then stores each
-//   query row's 4 pixels as one run (with lanes = 128: aligned 16-byte
-//   pieces, 1 KB in bf16).
+//   (bench_tools/corr_sweep.py:100): (B, H, W, lanes) in fm1's dtype, the f32
+//   sum scaled and rounded once, lanes = d^2 or 128 with channels d^2..127
+//   written as zeros (full_lanes). Its (B, W, H, C) space and 128-row padded
+//   product are TPU devices; it reads NHWC as it is. Needs H + 2r <= 128, as
+//   the JAX function asserts.
+//
+// Bounds at the sweep shape (32 slices, 64x64, C=256, r=5): the function
+// reads fm1 and fm2 once and writes d^2 channels, 0.0495 ms bf16 / 0.0991 ms
+// f32 at 3.35 TB/s (row 8 writes f32 planes: 63 MB in either dtype); 28 GFLOP
+// of products as tiled here (29 us on bf16 tensor cores), 85 GFLOP as 3xTF32
+// in f32 (0.17 ms at the TF32 peak).
+//
+// Design: the body of local_corr_band.cu (rows 2, 3 and 5; PERF.md §6),
+// copied, with two epilogues of its own.
+// Products. A block owns QR = 4 query rows and a strip of queries as 16-query
+// sub-strips, one consumer warpgroup each. For each source row s and
+// sub-strip j one wgmma chain forms D[64 x 32] = A[64 x C] * B[32 x C]^T:
+// A's 64 rows are the sub-strip's 16 queries of all 4 query rows, B's 32
+// rows the source columns x0+16j-r .. x0+16j-r+31 of row s. Element (query
+// row q, query m, column n) is the product at dy = s-(y0+q)+r, dx = n-m;
+// the epilogue keeps those with both in [0, d).
+//   bf16: wgmma m64n32k16, four sub-strips (64 queries a block), 17 warps.
+//   Of fm1's four 64-channel chunks (C <= 256) three are held in registers
+//   as ldmatrix fragments (wgmma rs) and one stays resident in shared memory
+//   (wgmma ss): 17 warps cap a thread at 96 registers, and all four in
+//   registers spills and serializes every product (C7512). C > 256 streams
+//   fm1's chunk in every stage.
+//   f32: wgmma m64n32k8 TF32 in 3xTF32 (small(A) big(B) + big(A) small(B) +
+//   big(A) big(B), big = the low 13 bits masked; a raw operand serves as
+//   its own big part), A from registers, K-major B; two sub-strips (32
+//   queries a block), two splitter warps that write each landed chunk's
+//   small parts, of each 256 channels 128 in registers and 128 resident.
+// Loads. TMA only, 4-d tensor maps on NHWC, 128-byte channel chunks in the
+// 128-byte swizzle the wgmma descriptors name; boxes outside the image or
+// past C arrive zero-filled. One producer warp; a ring of mbarrier-guarded
+// stages, one source row's chunk each; source rows wholly outside the image
+// are neither loaded nor multiplied (their band is written as zeros). Per
+// block 4 rows of fm1 and at most 4+2r rows of fm2 through L2, once.
+// Epilogues, after each source row has been multiplied (over all of C, or
+// over a group of 256 channels in f32):
+//   NHWC (rotmxu): each warp writes its band, scaled and rounded once, into a
+//   (4, strip, d^2) tile in shared memory, which the block stores at the end:
+//   16-byte runs of d^2 lanes, or with 128 lanes 4-byte words read from the
+//   tile with the lanes past d^2 set to zero in registers (the tile stays
+//   d^2 wide, so the ring keeps its stages).
+//   PLANAR (swapped), bf16: every (y, dy, dx) that source row s feeds is
+//   final once s is multiplied (s = y + dy - r has one solution), so each
+//   warp writes its query row's band, scaled, through its own 16 x d slot
+//   (704 bytes at r=5) to planes dx*d + dy as 64-byte runs of 16 queries; no
+//   output tile (in f32 values it would take 124 KB), and the space goes to
+//   the ring (18 stages). f32: the NHWC tile of 32 queries (62 KB, as
+//   rotmxu's), stored to the planes at the block's end as 128-byte runs; C >
+//   256 runs channel groups of 256, each added into the tile. Per-row
+//   stores in f32 measured 8% slower (0.51 against 0.48 ms at the sweep
+//   shape on the H100; PERF.md §6; that consumer loop held 168 registers, the
+//   cap at 11 warps).
+// A wait on a barrier that never completes traps instead of hanging the card.
 
+#include <cuda.h>   // CUtensorMap and its enums only: the driver entry point
+                    // is fetched at run time, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+
 namespace {
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  // src-size 0 copies nothing and fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
+enum Mode { NHWC = 0, PLANAR = 1 };
+
+constexpr int QR = 4;                  // query rows per block, one per warp of a warpgroup
+constexpr int SUB = 16;                // queries per sub-strip
+constexpr int NB = 32;                 // source columns per product (16 + 2r <= 32)
+constexpr int ROWB = 128;              // shared bytes per staged pixel and chunk
+constexpr int MAX_STAGES = 20;
+constexpr int SMEM_LIMIT = 232448;     // a block's shared memory on the H100
+constexpr int STATIC_RESERVE = 1024;   // the barriers (static shared memory)
+constexpr int ALIGN = 1024;            // the 128-byte swizzle repeats every 1 KB
+constexpr int FULL_LANES = 128;        // rotmxu's full_lanes width
+
+struct Args {
+  int H, W, C, r, lanes, nk, nstage;   // lanes: NHWC's output channels (d^2 or 128)
+  float scale;
+};
+
+// ---------------------------------------------------------------------------
+// barriers, TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` has completed. A wait that never
+// ends (a fault in the schedule) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (n > (1u << 24)) __trap();
+  }
+}
+
+// 4-d TMA load of box (c, x, y, b) of `map` into shared `dst`, completion
+// reported on `bar` (out-of-bounds elements arrive as zeros)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c,
+                                         int x, int y, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(x), "r"(y), "r"(b),
+        "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void prefetch_maps(const CUtensorMap* m1, const CUtensorMap* m2) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m1)) : "memory");
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m2)) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// four 8x8 b16 matrices from shared memory, one row address a lane
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), leading
+// offset unused for this layout (1)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even, as XLA's convert
-}
+#define WGMMA_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WGMMA_D16_ARGS(d)                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),      \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 
-// 16 bytes of shared memory as NV floats (bf16 widened exactly)
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int NV = 4;
-  __device__ __forceinline__ static void load(const unsigned char* p, float (&v)[NV]) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int NV = 8;
-  __device__ __forceinline__ static void load(const unsigned char* p, float (&v)[NV]) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {   // element 2i is the low half of word i
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-// ------------------------------------------------------------ corr_swapped
-
-constexpr int SW_COLS = 64;                 // query columns a block
-constexpr int SW_ROWG = 4;                  // thread row groups
-constexpr int SW_NT = SW_COLS * SW_ROWG;    // threads a block
-
-template <int HT, int R>
-struct SwGeometry {
-  static constexpr int D = 2 * R + 1;
-  static constexpr int QPT = HT / SW_ROWG;           // queries a thread (along y)
-  static constexpr int KP = HT <= 16 ? 2 : 1;        // 16-byte channel pieces a stage
-  static constexpr int WROWS = HT + 2 * R;           // fm2 window rows
-  static constexpr int NPX = (HT + WROWS) * SW_COLS; // staged pixels
-  static constexpr int PLANE = NPX * 16;             // bytes of one piece plane
-  static constexpr int STAGE = KP * PLANE;
-  static constexpr int FIT = 232448 / STAGE;         // stages in 227 KB
-  static constexpr int NSTAGE = FIT < 4 ? FIT : 4;   // the cp.async ring
-  static constexpr int SMEM = NSTAGE * STAGE;
-  static constexpr int NIT = (NPX * KP + SW_NT - 1) / SW_NT;   // copies a thread a stage
-  static_assert(HT % SW_ROWG == 0, "rows a block split over the row groups");
-  static_assert(NSTAGE >= 2, "a stage in flight while one computes");
-  static_assert(NIT <= 32, "one validity bit a copy");
-};
-
-template <typename T, int R, int HT>
-__global__ void __launch_bounds__(SW_NT, 1)
-local_corr_swapped_kernel(const T* __restrict__ fm1, const T* __restrict__ fm2,
-                          float* __restrict__ out, int H, int W, int C, float scale) {
-  using G = SwGeometry<HT, R>;
-  constexpr int D = G::D, QPT = G::QPT, KP = G::KP, NS = G::NSTAGE, NV = Vec<T>::NV;
-  extern __shared__ __align__(16) unsigned char smem[];
-
-  const int tx = threadIdx.x % SW_COLS, tr = threadIdx.x / SW_COLS;
-  const int x0 = blockIdx.x * SW_COLS, y0 = blockIdx.y * HT;
-  const size_t img = static_cast<size_t>(blockIdx.z) * H;
-  const uint32_t smem_u32 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int cbytes = C * static_cast<int>(sizeof(T));
-  const int nk = cbytes / (16 * KP);   // channel steps a dx (C*sizeof(T) % 32 == 0)
-  const int nsteps = D * nk;
-
-  // A thread's copies are the same pieces (u = tid + 256*it: pixel u / KP,
-  // piece u % KP) at every step; only the channel offset and, between dx,
-  // the window's columns change. So the source addresses and their
-  // validity are planned once per dx, and a step adds its channel offset.
-  const unsigned char* src[G::NIT];
-  uint32_t valid = 0;
-  auto plan = [&](int dx) {
-    valid = 0;
-#pragma unroll
-    for (int it = 0; it < G::NIT; ++it) {
-      const int u = threadIdx.x + it * SW_NT, px = u / KP, p = u % KP;
-      int row, col;
-      const T* src_t;
-      if (px < HT * SW_COLS) {
-        row = y0 + px / SW_COLS;
-        col = x0 + px % SW_COLS;
-        src_t = fm1;
-      } else {
-        const int q = px - HT * SW_COLS;
-        row = y0 - R + q / SW_COLS;
-        col = x0 + q % SW_COLS + dx - R;
-        src_t = fm2;
-      }
-      src[it] = reinterpret_cast<const unsigned char*>(fm1);   // any valid address
-      if (u < G::NPX * KP && row >= 0 && row < H && col >= 0 && col < W) {   // zero outside
-        src[it] = reinterpret_cast<const unsigned char*>(src_t + ((img + row) * W + col) * C) + p * 16;
-        valid |= 1u << it;
-      }
-    }
-  };
-  // step s = dx * nk + k: channel bytes [16*KP*k, 16*KP*(k+1)) of the fm1
-  // tile and of fm2's window shifted by dx (planned for s's dx)
-  auto load_stage = [&](int buf, int s) {
-    if (s % nk == 0) plan(s / nk);
-    const int cbyte = (s % nk) * 16 * KP;
-    const uint32_t base = smem_u32 + buf * G::STAGE;
-#pragma unroll
-    for (int it = 0; it < G::NIT; ++it) {
-      const int u = threadIdx.x + it * SW_NT;
-      if (it == G::NIT - 1 && u >= G::NPX * KP) break;
-      const bool v = (valid >> it) & 1u;
-      cp_async16(base + (u % KP) * G::PLANE + (u / KP) * 16, src[it] + (v ? cbyte : 0), v);
-    }
-  };
-
-  float acc[QPT][D];
-#pragma unroll
-  for (int q = 0; q < QPT; ++q)
-#pragma unroll
-    for (int dy = 0; dy < D; ++dy) acc[q][dy] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < nsteps) load_stage(s, s);
-    cp_async_commit();   // possibly empty: keeps the group count uniform
-  }
-  for (int s = 0; s < nsteps; ++s) {
-    cp_async_wait<NS - 2>();   // step s has landed (for this thread) ...
-    __syncthreads();   // ... for every thread, and all are done with step s-1
-    if (s + NS - 1 < nsteps) load_stage((s + NS - 1) % NS, s + NS - 1);
-    cp_async_commit();
-
-    const unsigned char* st = smem + (s % NS) * G::STAGE;
-#pragma unroll
-    for (int p = 0; p < KP; ++p) {
-      const unsigned char* pl = st + p * G::PLANE;
-      float f1[QPT][NV];
-#pragma unroll
-      for (int q = 0; q < QPT; ++q)
-        Vec<T>::load(pl + ((tr * QPT + q) * SW_COLS + tx) * 16, f1[q]);
-#pragma unroll
-      for (int i = 0; i < QPT + 2 * R; ++i) {   // window row tr*QPT + i
-        float f2[NV];
-        Vec<T>::load(pl + ((HT + tr * QPT + i) * SW_COLS + tx) * 16, f2);
-#pragma unroll
-        for (int dy = 0; dy < D; ++dy) {
-          const int q = i - dy;   // the query this row is shift dy of
-          if (q < 0 || q >= QPT) continue;
-#pragma unroll
-          for (int v = 0; v < NV; ++v) acc[q][dy] = fmaf(f1[q][v], f2[v], acc[q][dy]);
-        }
-      }
-    }
-
-    if (s % nk == nk - 1) {   // dx complete (uniform over the block)
-      const int dx = s / nk, x = x0 + tx;
-#pragma unroll
-      for (int q = 0; q < QPT; ++q) {
-        const int y = y0 + tr * QPT + q;
-        if (x < W && y < H) {
-          float* o = out + ((static_cast<size_t>(blockIdx.z) * D * D + dx * D) * H + y) * W + x;
-#pragma unroll
-          for (int dy = 0; dy < D; ++dy) o[static_cast<size_t>(dy) * H * W] = acc[q][dy] * scale;
-        }
-#pragma unroll
-        for (int dy = 0; dy < D; ++dy) acc[q][dy] = 0.f;
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-template <typename T, int R, int HT>
-cudaError_t launch_swapped(const void* fm1, const void* fm2, void* out, int B, int H,
-                           int W, int C, float scale, cudaStream_t stream) {
-  constexpr int smem = SwGeometry<HT, R>::SMEM;
-  auto kernel = local_corr_swapped_kernel<T, R, HT>;
-  static bool configured = false;   // above 48 KB needs the opt-in, once
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const dim3 grid((W + SW_COLS - 1) / SW_COLS, (H + HT - 1) / HT, B);
-  kernel<<<grid, SW_NT, smem, stream>>>(static_cast<const T*>(fm1),
-                                        static_cast<const T*>(fm2),
-                                        static_cast<float*>(out), H, W, C, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int R>
-cudaError_t swapped_rows(const void* fm1, const void* fm2, void* out, int B, int H,
-                         int W, int C, int h_tile, float scale, cudaStream_t s) {
-  switch (h_tile) {
-    case 8: return launch_swapped<T, R, 8>(fm1, fm2, out, B, H, W, C, scale, s);
-    case 16: return launch_swapped<T, R, 16>(fm1, fm2, out, B, H, W, C, scale, s);
-    case 32: return launch_swapped<T, R, 32>(fm1, fm2, out, B, H, W, C, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// ------------------------------------------------------------- corr_rotmxu
-
-constexpr int RM_COLS = 4;       // query columns a block
-constexpr int RM_ROWS = 16;      // query rows a block (one m-tile)
-constexpr int RM_SROWS = 32;     // staged source rows a column: h0-R+j, j < 32
-constexpr int RM_LANES = 128;    // the output tile's channels (full lanes)
-constexpr int KBYTES = 64;       // channel bytes a pixel and stage
-constexpr int KSTEP = 32;        // channel bytes an MMA k-step
-constexpr int RM_NSTAGE = 6;     // shared buffers in the cp.async ring
-
-template <int R>
-struct RmGeometry {
-  static constexpr int D = 2 * R + 1;
-  static constexpr int NT = 32 * D;                          // one warp a shift
-  static constexpr int QPX = RM_COLS * RM_ROWS;              // staged queries
-  static constexpr int SCOLS = RM_COLS + 2 * R;              // staged source columns
-  static constexpr int PIXELS = QPX + SCOLS * RM_SROWS;      // staged pixels a stage
-  static constexpr int STAGE = PIXELS * KBYTES;
-  static constexpr int PIECES = PIXELS * (KBYTES / 16);
-  static_assert(2 * R + RM_ROWS <= RM_SROWS, "four n8 tiles cover the m-tile's band");
-};
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// D[64 x 32] (+)= A[64 x 16] * B[32 x 16]^T, bf16 in, f32 accumulators,
+// accumulate = 0 overwrites D. A from shared memory (ss) or registers (rs).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D16_ARGS(d) : "l"(da), "l"(db), "r"(accumulate));
 }
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&fa)[4],
+                                         uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : WGMMA_D16_ARGS(d)
+      : "r"(fa[0]), "r"(fa[1]), "r"(fa[2]), "r"(fa[3]), "l"(db), "r"(accumulate));
+}
+// D[64 x 32] (+)= A[64 x 8] * B[32 x 8]^T in TF32, A from registers (the
+// mma.sync m16n8k8 layout, one 16-row slice a warp), B K-major in shared
+// memory; f32 accumulators, accumulate = 0 overwrites D
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&fa)[4], uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " WGMMA_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WGMMA_D16_ARGS(d)
+      : "r"(fa[0]), "r"(fa[1]), "r"(fa[2]), "r"(fa[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // x = big + small: big keeps x's top 11 significant bits (a TF32 value),
 // small = x - big is exact in f32; the tensor core reads small's top 11
 // bits, which drops at most 2^-20 |x|
-__device__ __forceinline__ void split(uint32_t w, uint32_t& big, uint32_t& small) {
-  big = w & 0xffffe000u;
-  small = __float_as_uint(__uint_as_float(w) - __uint_as_float(big));
+__device__ __forceinline__ uint32_t tf32_small(uint32_t w) {
+  return __float_as_uint(__uint_as_float(w) - __uint_as_float(w & 0xffffe000u));
 }
 
-// Shared placement of 16-byte chunk `chunk` of staged pixel `px` (64 bytes
-// a pixel): the chunk index is XORed with bits 1-2 of the pixel index, so a
-// fragment read (8 consecutive pixels from a multiple of 8, one word of each
-// of 4 threads, one chunk) hits 32 different banks.
-__device__ __forceinline__ int swizzle(int px, int chunk) {
-  return (chunk ^ ((px >> 1) & 3)) * 16;
-}
+// ---------------------------------------------------------------------------
+// the two epilogues
+// ---------------------------------------------------------------------------
 
-template <typename T, int R>
-__global__ void __launch_bounds__(RmGeometry<R>::NT, 1)
-local_corr_rotmxu_kernel(const T* __restrict__ fm1, const T* __restrict__ fm2,
-                         T* __restrict__ out, int H, int W, int C, int lanes,
-                         float scale) {
-  using G = RmGeometry<R>;
-  constexpr int D = G::D;
-  extern __shared__ __align__(16) unsigned char smem[];
-
-  const int lane = threadIdx.x & 31, du = threadIdx.x >> 5;   // warp = shift du
-  const int g = lane >> 2, t = lane & 3;                       // fragment coordinates
-  const int w0 = blockIdx.x * RM_COLS, h0 = blockIdx.y * RM_ROWS;
-  const size_t img = static_cast<size_t>(blockIdx.z) * H;
-  const uint32_t smem_u32 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  // every pixel a fragment reads has swizzle bits (g >> 1) & 3 (16, 32, 64
-  // and 8 are multiples of 8): its chunk c sits at byte (c ^ sw) * 16
-  const int sw = (g >> 1) & 3;
-  const int cbytes = C * static_cast<int>(sizeof(T));
-
-  // one stage: channel bytes [k*KBYTES, (k+1)*KBYTES) of the queries (pixel
-  // 16c + m: column w0+c, row h0+m) and of the source columns (pixel
-  // QPX + 32sc + j: column w0-R+sc, row h0-R+j). A thread's copies are the
-  // same pieces (u = tid + NT*it: pixel u/4, chunk u%4) at every stage, so
-  // their source addresses and validity (zero outside the image) are
-  // planned once; a stage adds its channel offset.
-  constexpr int NIT = (G::PIECES + G::NT - 1) / G::NT;
-  static_assert(NIT <= 32, "one validity bit a copy");
-  const unsigned char* src[NIT];
-  uint32_t inside = 0;
+// PLANAR in bf16: one warp's band of one source row for query row y, shift
+// dy, the 16 queries from column xq, to planes dx*d + dy of the (B, d^2, H,
+// W) f32 output: the scaled accumulators, or zeros (a source row outside the
+// image). Accumulator element t is (query m, column n) with m = lane/4 +
+// 8*((t>>1)&1), n = 8*(t>>2) + 2*(lane%4) + (t&1), dx = n - m; the values
+// pass through the warp's slot `stg` (d x 16 floats) so that a lane stores
+// 16 bytes of one plane, a warp two or more 64-byte runs a step.
+__device__ __forceinline__ void planar_store(float* __restrict__ out, float* stg,
+                                             const float (&acc)[16], const Args& a, int b,
+                                             int y, int dy, int xq, int lane, bool zero) {
+  const int D = 2 * a.r + 1;
+  if (!zero) {
 #pragma unroll
-  for (int it = 0; it < NIT; ++it) {
-    const int u = threadIdx.x + it * G::NT, px = u >> 2, chunk = u & 3;
-    int row, col;
-    const T* src_t;
-    if (px < G::QPX) {
-      row = h0 + px % RM_ROWS;
-      col = w0 + px / RM_ROWS;
-      src_t = fm1;
-    } else {
-      const int q = px - G::QPX;
-      row = h0 - R + q % RM_SROWS;
-      col = w0 - R + q / RM_SROWS;
-      src_t = fm2;
+    for (int t = 0; t < 16; ++t) {
+      const int m = (lane >> 2) + 8 * ((t >> 1) & 1);
+      const int dx = 8 * (t >> 2) + 2 * (lane & 3) + (t & 1) - m;
+      if (dx >= 0 && dx < D) stg[dx * SUB + m] = acc[t] * a.scale;
     }
-    src[it] = reinterpret_cast<const unsigned char*>(fm1);   // any valid address
-    if (u < G::PIECES && row >= 0 && row < H && col >= 0 && col < W) {
-      src[it] = reinterpret_cast<const unsigned char*>(src_t + ((img + row) * W + col) * C) + chunk * 16;
-      inside |= 1u << it;
+    __syncwarp();
+  }
+  const size_t plane = static_cast<size_t>(a.H) * a.W;
+  float* base = out + (static_cast<size_t>(b) * D * D + dy) * plane +
+                static_cast<size_t>(y) * a.W + xq;   // + dx * D * plane
+  if ((a.W & 3) == 0) {   // 16-byte pieces: xq is a multiple of 16, planes of W % 4 == 0
+    for (int e = lane; e < D * 4; e += 32) {
+      const int dx = e >> 2, m0 = (e & 3) * 4;
+      if (xq + m0 >= a.W) continue;
+      *reinterpret_cast<float4*>(base + dx * D * plane + m0) =
+          zero ? make_float4(0.f, 0.f, 0.f, 0.f)
+               : *reinterpret_cast<const float4*>(stg + dx * SUB + m0);
+    }
+  } else {
+    for (int e = lane; e < D * SUB; e += 32) {
+      const int dx = e / SUB, m = e % SUB;
+      if (xq + m >= a.W) continue;
+      base[dx * D * plane + m] = zero ? 0.f : stg[e];
     }
   }
-  auto load_stage = [&](int buf, int k) {
-    const uint32_t base = smem_u32 + buf * G::STAGE;
+  __syncwarp();   // the slot is read before the next row rewrites it
+}
+
+// NHWC: the block's (QR, txw, d^2) tile in shared memory to the output rows
+// y0.. from column x0, `nthreads` threads: d^2 lanes as 16-byte runs where
+// aligned, or 128 lanes as 4-byte words whose lanes past d^2 are zeros set
+// in registers.
+template <typename T>
+__device__ __forceinline__ void store_tile(T* __restrict__ out, const T* so, const Args& a,
+                                           int b, int y0, int x0, int txw, int nthreads) {
+  using Bits = typename std::conditional<sizeof(T) == 2, uint16_t, uint32_t>::type;
+  constexpr int L = 16 / sizeof(T);    // elements a 16-byte piece
+  const int DD = (2 * a.r + 1) * (2 * a.r + 1);
+  const int nq = min(txw, a.W - x0);
+  for (int q = 0; q < QR; ++q) {
+    const int y = y0 + q;
+    if (y >= a.H) break;
+    T* dst = out + ((static_cast<size_t>(b) * a.H + y) * a.W + x0) * a.lanes;
+    const T* src = so + q * txw * DD;
+    if (a.lanes == DD) {
+      const int n = nq * DD;
+      int done = 0;
+      if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {   // 16-byte runs
+        const int nv = n / L;
+        for (int e = threadIdx.x; e < nv; e += nthreads)
+          reinterpret_cast<uint4*>(dst)[e] = reinterpret_cast<const uint4*>(src)[e];
+        done = nv * L;
+      }
+      for (int e = done + threadIdx.x; e < n; e += nthreads) dst[e] = src[e];
+    } else {   // a 4-byte word a thread: consecutive threads read the tile contiguously
+      constexpr int PER = 4 / sizeof(T);          // lanes a word
+      constexpr int WPX = FULL_LANES / PER;       // words a pixel
+      const Bits* sb = reinterpret_cast<const Bits*>(src);
+      for (int e = threadIdx.x; e < nq * WPX; e += nthreads) {
+        const Bits* px = sb + (e / WPX) * DD;
+        const int c = (e % WPX) * PER;
+        uint32_t v = c < DD ? px[c] : 0u;
+        if constexpr (PER == 2) v |= (c + 1 < DD ? uint32_t(px[c + 1]) : 0u) << 16;
+        reinterpret_cast<uint32_t*>(dst)[e] = v;
+      }
+    }
+  }
+}
+
+// PLANAR in f32: the block's (QR, 32, d^2) tile to planes 0..d^2-1 of rows
+// y0.. from column x0, one 128-byte run of 32 queries a warp and step.
+__device__ __forceinline__ void store_planes(float* __restrict__ out, const float* so,
+                                             const Args& a, int b, int y0, int x0) {
+  constexpr int TX = 32, NWARPS = 8;   // the f32 block's queries a row, consumer warps
+  const int DD = (2 * a.r + 1) * (2 * a.r + 1), x = threadIdx.x & 31;
+  const size_t plane = static_cast<size_t>(a.H) * a.W;
+  if (x0 + x >= a.W) return;
+  for (int qc = threadIdx.x >> 5; qc < QR * DD; qc += NWARPS) {
+    const int q = qc / DD, c = qc - q * DD;
+    if (y0 + q < a.H)
+      out[(static_cast<size_t>(b) * DD + c) * plane + static_cast<size_t>(y0 + q) * a.W + x0 +
+          x] = so[(q * TX + x) * DD + c];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int NSUB = 4;                // sub-strips per block, one per consumer warpgroup
+constexpr int TXW = SUB * NSUB;        // queries per block and row
+constexpr int SCOLS = TXW - SUB + NB;  // staged source columns x0-r .. x0-r+79
+constexpr int CK = 64;                 // channels per chunk: one 128-byte swizzle row
+constexpr int A_BYTES = QR * SUB * ROWB;   // one sub-strip's fm1 chunk, 8 KB
+constexpr int B_BYTES = SCOLS * ROWB;      // one source row's fm2 chunk, 10 KB
+constexpr int FM1_CHUNKS = 4;          // fm1 held on chip for C <= 256 ...
+constexpr int REG_CHUNKS = 3;          // ... these in registers, the rest resident
+constexpr int FM1_AT = 3;              // fm1's register chunks are staged over the ring from here
+constexpr int NCONS = 128 * NSUB;      // four consumer warpgroups
+constexpr int NTC = NCONS + 32;        // + one producer warp
+
+// bytes of the epilogue's shared memory: NHWC's output tile, or PLANAR's
+// staging slot of d x 16 floats for each consumer warp
+int epilogue_bytes(int mode, int r, int txw, int esize, int ncons) {
+  const int d = 2 * r + 1;
+  return mode == NHWC ? (QR * txw * d * d * esize + 15) / 16 * 16 : ncons / 32 * d * SUB * 4;
+}
+
+struct Plan {
+  int nk;        // channel chunks
+  int fm1_nk;    // = nk when fm1 is held on chip (C <= 256), else 0
+  int nstage;    // ring stages
+  int stage_bytes, res_bytes, out_bytes, smem;   // res: fm1's resident chunks
+};
+
+Plan make_plan(int C, int r, int mode) {
+  Plan p;
+  p.nk = (C + CK - 1) / CK;
+  p.fm1_nk = p.nk <= FM1_CHUNKS ? p.nk : 0;
+  const int reg_nk = p.fm1_nk < REG_CHUNKS ? p.fm1_nk : REG_CHUNKS;
+  p.stage_bytes = B_BYTES + (p.fm1_nk ? 0 : NSUB * A_BYTES);
+  p.res_bytes = (p.fm1_nk - reg_nk) * NSUB * A_BYTES;
+  p.out_bytes = epilogue_bytes(mode, r, TXW, 2, NCONS);
+  const int avail = SMEM_LIMIT - STATIC_RESERVE - ALIGN - p.res_bytes - p.out_bytes;
+  p.nstage = avail / p.stage_bytes < MAX_STAGES ? avail / p.stage_bytes : MAX_STAGES;
+  p.smem = ALIGN + p.nstage * p.stage_bytes + p.res_bytes + p.out_bytes;
+  if (reg_nk && p.nstage * B_BYTES < FM1_AT * B_BYTES + reg_nk * NSUB * A_BYTES)
+    p.nstage = 0;   // the register chunks must fit over the ring's stages FM1_AT..
+  return p;
+}
+
+// NKF > 0: C <= 64*NKF, fm1 is held on chip: each consumer warpgroup loads
+// its sub-strip's first NKR chunks into registers (staged once over ring
+// stages FM1_AT..) and reads the other NKS from a resident copy. NKF = 0:
+// C > 256, fm1's chunk rides in every stage the block multiplies and is
+// read from shared memory. `out`: bf16 NHWC, or f32 planes (PLANAR).
+template <int NKF, int MODE>
+__global__ void __launch_bounds__(NTC, 1)
+sweep_bf16_kernel(const __grid_constant__ CUtensorMap map1,
+                  const __grid_constant__ CUtensorMap map2, void* __restrict__ out,
+                  const Args a) {
+  constexpr int NKR = NKF < REG_CHUNKS ? NKF : REG_CHUNKS, NKS = NKF - NKR;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES],
+      fm1_ready[FM1_CHUNKS], fm1_free, res_ready;
+
+  const int D = 2 * a.r + 1, DD = D * D;
+  const int x0 = blockIdx.x * TXW, y0 = blockIdx.y * QR, b = blockIdx.z;
+  const int nj = min(NSUB, (a.W - x0 + SUB - 1) / SUB);   // sub-strips inside the image
+  // source rows y0-r .. y0+QR-1+r; those inside the image are s_lo .. s_hi
+  const int s_lo = max(0, y0 - a.r), s_hi = min(a.H - 1, y0 + QR - 1 + a.r);
+  const int stage_bytes = B_BYTES + (NKF ? 0 : NSUB * A_BYTES);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring_s = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  const uint32_t fm1_s = ring_s + FM1_AT * B_BYTES;   // NKR > 0: staged once
+  const uint32_t res_s = ring_s + a.nstage * stage_bytes;   // [chunk - NKR][sub-strip]
+  unsigned char* epi = smem_raw + (res_s + NKS * NSUB * A_BYTES - raw);   // the epilogue's
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.nstage; ++i) {
+      mbar_init(smem_u32(&full[i]), 1);
+      mbar_init(smem_u32(&empty[i]), NCONS / 32);   // one arrival per consumer warp
+    }
+    for (int k = 0; k < FM1_CHUNKS; ++k) mbar_init(smem_u32(&fm1_ready[k]), 1);
+    mbar_init(smem_u32(&fm1_free), NCONS / 32);
+    mbar_init(smem_u32(&res_ready), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the role as a value ptxas can see is warp-uniform (a branch on
+  // threadIdx alone reads as divergent, and wgmmas under it serialize)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == NSUB) {
+    // ---- producer: one thread issues every TMA load of the block ----
+    if (threadIdx.x == NCONS) {
+      prefetch_maps(&map1, &map2);
+      for (int k = 0; k < NKR; ++k) {
+        const uint32_t bar = smem_u32(&fm1_ready[k]);
+        mbar_expect_tx(bar, nj * A_BYTES);
+        for (int j = 0; j < nj; ++j)
+          tma_load(fm1_s + (k * NSUB + j) * A_BYTES, &map1, k * CK, x0 + SUB * j, y0, b, bar);
+      }
+      if (NKS) {
+        const uint32_t bar = smem_u32(&res_ready);
+        mbar_expect_tx(bar, NKS * nj * A_BYTES);
+        for (int k = NKR; k < NKF; ++k)
+          for (int j = 0; j < nj; ++j)
+            tma_load(res_s + ((k - NKR) * NSUB + j) * A_BYTES, &map1, k * CK, x0 + SUB * j, y0,
+                     b, bar);
+      }
+      bool fm1_gone = NKR == 0;   // the ring's stages over fm1 wait for its registers
+      int stage = 0, phase = 0;
+      for (int s = s_lo; s <= s_hi; ++s) {   // rows outside the image: nothing to load
+        for (int k = 0; k < a.nk; ++k) {
+          if (!fm1_gone && stage == FM1_AT) {
+            mbar_wait(smem_u32(&fm1_free), 0);
+            fm1_gone = true;
+          }
+          mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+          const uint32_t bar = smem_u32(&full[stage]);
+          const uint32_t st = ring_s + stage * stage_bytes;
+          mbar_expect_tx(bar, B_BYTES + (NKF ? 0 : nj * A_BYTES));
+          tma_load(st, &map2, k * CK, x0 - a.r, s, b, bar);
+          if (!NKF)
+            for (int j = 0; j < nj; ++j)
+              tma_load(st + B_BYTES + j * A_BYTES, &map1, k * CK, x0 + SUB * j, y0, b, bar);
+          if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup `role` computes sub-strip j = role; its warp w
+  // the query row y0 + w. Every wgmma is issued on a path all 128 threads of
+  // the warpgroup take (ptxas serializes them otherwise): a sub-strip past
+  // the image edge, or channels past C, are computed on stale data or zeros
+  // and dropped.
+  const int j = role, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  uint32_t fa[NKR ? NKR * 4 : 1][4];   // A fragments, one set per 16-channel step
+  if constexpr (NKR > 0) {
+    // ldmatrix.x4 lane l addresses row 16w + l%8 + 8*((l/8)&1), 16-byte
+    // chunk 2*kk + l/16: the four 8x8 blocks of the fragment's 16 x 16
+    const int row = 16 * w + (lane & 7) + 8 * ((lane >> 3) & 1);
 #pragma unroll
-    for (int it = 0; it < NIT; ++it) {
-      const int u = threadIdx.x + it * G::NT, px = u >> 2, chunk = u & 3;
-      if (it == NIT - 1 && u >= G::PIECES) break;
-      // a last step of 32 bytes reads zeros after C
-      const bool v = ((inside >> it) & 1u) && k * KBYTES + chunk * 16 < cbytes;
-      cp_async16(base + px * KBYTES + swizzle(px, chunk), src[it] + (v ? k * KBYTES : 0), v);
+    for (int k = 0; k < NKR; ++k) {
+      mbar_wait(smem_u32(&fm1_ready[k]), 0);
+      const uint32_t tile = fm1_s + (k * NSUB + j) * A_BYTES + row * ROWB;
+#pragma unroll
+      for (int kk = 0; kk < CK / 16; ++kk)
+        ldmatrix_x4(fa[k * 4 + kk], tile + (((2 * kk + (lane >> 4)) ^ (row & 7)) << 4));
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&fm1_free));
+  }
+  if (NKS) mbar_wait(smem_u32(&res_ready), 0);
+
+  float acc[16];
+  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(epi);   // NHWC: (4, 64, d^2) tile
+  float* stg = reinterpret_cast<float*>(epi) + (threadIdx.x >> 5) * D * SUB;   // PLANAR
+  // the band of source row s for query row y0 + w (zeros outside the
+  // image): accumulator element t is (query m, column n) with m = lane/4 +
+  // 8*((t>>1)&1), n = 8*(t>>2) + 2*(lane%4) + (t&1), dx = n - m
+  auto band = [&](int s, bool zero) {
+    const int dy = s - (y0 + w) + a.r;
+    if (dy < 0 || dy >= D || j >= nj) return;
+    if constexpr (MODE == NHWC) {
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        const int m = (lane >> 2) + 8 * ((t >> 1) & 1);
+        const int dx = 8 * (t >> 2) + 2 * (lane & 3) + (t & 1) - m;
+        if (dx >= 0 && dx < D)
+          so[(w * TXW + SUB * j + m) * DD + dx * D + dy] =
+              __float2bfloat16(zero ? 0.f : acc[t] * a.scale);
+      }
+    } else {
+      if (y0 + w < a.H)
+        planar_store(static_cast<float*>(out), stg, acc, a, b, y0 + w, dy, x0 + SUB * j, lane,
+                     zero);
     }
   };
+  for (int s = y0 - a.r; s < y0 + QR + a.r; ++s)
+    if (s < s_lo || s > s_hi) band(s, true);   // zero outside the image
 
-  float acc[RM_COLS][4][4];   // (query column, n-tile, fragment element)
+  int stage = 0, phase = 0, prev = -1;
+  auto release = [&](int st) {
+    if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
+  };
+  // one stage: channel chunk k of source row s, fm1 from registers (`regs`
+  // true: k < NKR, a static index), its resident copy or the stage
+  auto step = [&](int k, auto regs) {
+    mbar_wait(smem_u32(&full[stage]), phase);
+    const uint32_t st = ring_s + stage * stage_bytes;
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
-  for (int c = 0; c < RM_COLS; ++c)
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      const uint64_t db = wgmma_desc(st + j * SUB * ROWB + kk * 32);
+      if constexpr (decltype(regs)::value)
+        wgmma_rs(acc, fa[k * 4 + kk], db, (k | kk) != 0);
+      else if constexpr (NKF > 0)
+        wgmma_ss(acc, wgmma_desc(res_s + ((k - NKR) * NSUB + j) * A_BYTES + kk * 32), db,
+                 (k | kk) != 0);
+      else
+        wgmma_ss(acc, wgmma_desc(st + B_BYTES + j * A_BYTES + kk * 32), db, (k | kk) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's products have retired
+    fence_acc(acc);
+    if (prev >= 0) release(prev);
+    prev = stage;
+    if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+  };
+  for (int s = s_lo; s <= s_hi; ++s) {
+    if constexpr (NKF > 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int k = 0; k < NKR; ++k) step(k, std::true_type());
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
-
-  const int nk = (cbytes + KBYTES - 1) / KBYTES;
-#pragma unroll
-  for (int k = 0; k < RM_NSTAGE - 1; ++k) {
-    if (k < nk) load_stage(k, k);
-    cp_async_commit();   // possibly empty: keeps the group count uniform
+      for (int k = NKR; k < NKF; ++k) step(k, std::false_type());
+    } else {
+      for (int k = 0; k < a.nk; ++k) step(k, std::false_type());
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release(prev);
+    prev = -1;
+    band(s, false);
   }
-  for (int k = 0; k < nk; ++k) {
-    cp_async_wait<RM_NSTAGE - 2>();   // stage k has landed (for this thread) ...
-    __syncthreads();   // ... for every thread, and all are done with stage k-1
-    if (k + RM_NSTAGE - 1 < nk) load_stage((k + RM_NSTAGE - 1) % RM_NSTAGE, k + RM_NSTAGE - 1);
-    cp_async_commit();
 
-    const unsigned char* st = smem + (k % RM_NSTAGE) * G::STAGE;
-#pragma unroll
-    for (int kk = 0; kk < KBYTES / KSTEP; ++kk) {
-      const int c0 = ((2 * kk) ^ sw) * 16, c1 = ((2 * kk + 1) ^ sw) * 16;
-#pragma unroll
-      for (int c = 0; c < RM_COLS; ++c) {
-        // A: queries g (+8) of column c, words at bytes 4t of the k-step's
-        // two chunks: (g, k 2t..2t+1), (g+8, ..), (g, 2t+8..), (g+8, ..) for
-        // bf16 and (g, t), (g+8, t), (g, t+4), (g+8, t+4) for TF32
-        const unsigned char* pa = st + (RM_ROWS * c + g) * KBYTES + 4 * t;
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(pa + c0);
-        a[1] = *reinterpret_cast<const uint32_t*>(pa + 8 * KBYTES + c0);
-        a[2] = *reinterpret_cast<const uint32_t*>(pa + c1);
-        a[3] = *reinterpret_cast<const uint32_t*>(pa + 8 * KBYTES + c1);
-        uint32_t ab[4], as[4];
-        if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split(a[e], ab[e], as[e]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // B: source row 8j + g of column w0+c+du-R (staged column c+du)
-          const unsigned char* pb =
-              st + (G::QPX + (c + du) * RM_SROWS + 8 * j + g) * KBYTES + 4 * t;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(pb + c0);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(pb + c1);
-          if constexpr (std::is_same<T, float>::value) {
-            uint32_t bb0, bs0, bb1, bs1;
-            split(b0, bb0, bs0);
-            split(b1, bb1, bs1);
-            mma_tf32(acc[c][j], as, bb0, bb1);
-            mma_tf32(acc[c][j], ab, bs0, bs1);
-            mma_tf32(acc[c][j], ab, bb0, bb1);
-          } else {
-            mma_bf16(acc[c][j], a, b0, b1);
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // every warp is done with the stages before they are reused
-
-  // (16 rows, 4 columns, 128 lanes) output tile over the stages, zeroed
-  // first: the lanes past d^2 are written as zeros, never as stale memory
-  T* so = reinterpret_cast<T*>(smem);
-  constexpr int TILE_PIECES = RM_ROWS * RM_COLS * RM_LANES * static_cast<int>(sizeof(T)) / 16;
-  for (int e = threadIdx.x; e < TILE_PIECES; e += G::NT)
-    reinterpret_cast<uint4*>(smem)[e] = make_uint4(0u, 0u, 0u, 0u);
-  __syncthreads();
-  // Band extraction: element e of tile (c, j) is (query m, source row jl) =
-  // (g + 8*(e>>1), 8j + 2t + (e&1)); its vertical shift is dy = jl - m
-  // (source row h0+jl-R = query row h0+m + dy-R)
-#pragma unroll
-  for (int c = 0; c < RM_COLS; ++c)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = g + 8 * (e >> 1);
-        const int dy = 8 * j + 2 * t + (e & 1) - m;
-        if (dy < 0 || dy >= D) continue;
-        so[(m * RM_COLS + c) * RM_LANES + du * D + dy] = from_f32<T>(acc[c][j][e] * scale);
-      }
-  __syncthreads();
-
-  // a row's columns w0.. are consecutive pixels: one run of ncols * lanes
-  const int nrows = min(RM_ROWS, H - h0), ncols = min(RM_COLS, W - w0);
-  if (lanes == RM_LANES) {   // 16-byte pieces, aligned (128 lanes a pixel)
-    constexpr int PPX = RM_LANES * static_cast<int>(sizeof(T)) / 16;   // pieces a pixel
-    for (int e = threadIdx.x; e < nrows * ncols * PPX; e += G::NT) {
-      const int m = e / (ncols * PPX), p = e % (ncols * PPX);
-      uint4* dst = reinterpret_cast<uint4*>(out + ((img + h0 + m) * W + w0) * RM_LANES);
-      dst[p] = reinterpret_cast<const uint4*>(so + m * RM_COLS * RM_LANES)[p];
-    }
-  } else {                   // d^2 lanes a pixel
-    for (int e = threadIdx.x; e < nrows * ncols * D * D; e += G::NT) {
-      const int m = e / (ncols * D * D), rest = e % (ncols * D * D);
-      const int c = rest / (D * D), ch = rest % (D * D);
-      out[((img + h0 + m) * W + w0 + c) * (D * D) + ch] =
-          so[(m * RM_COLS + c) * RM_LANES + ch];
-    }
+  if constexpr (MODE == NHWC) {
+    // every consumer warp's band is in the tile
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory");
+    store_tile(static_cast<__nv_bfloat16*>(out), so, a, b, y0, x0, TXW, NCONS);
   }
 }
 
-template <typename T, int R>
-cudaError_t launch_rotmxu(const void* fm1, const void* fm2, void* out, int B, int H,
-                          int W, int C, int lanes, float scale, cudaStream_t stream) {
-  using G = RmGeometry<R>;
-  constexpr int tile = RM_ROWS * RM_COLS * RM_LANES * static_cast<int>(sizeof(T));
-  constexpr int smem = RM_NSTAGE * G::STAGE > tile ? RM_NSTAGE * G::STAGE : tile;
-  if (lanes != RM_LANES && lanes != G::D * G::D) return cudaErrorInvalidValue;
-  auto kernel = local_corr_rotmxu_kernel<T, R>;
-  static bool configured = false;   // above 48 KB needs the opt-in, once
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
+// ---------------------------------------------------------------------------
+// f32: TMA + wgmma, 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int F_NSUB = 2;                      // sub-strips per block, one per consumer warpgroup
+constexpr int F_TXW = SUB * F_NSUB;            // queries per block and row
+constexpr int F_SCOLS = F_TXW - SUB + NB;      // staged source columns x0-r .. x0-r+47
+constexpr int F_CK = 32;                       // channels per chunk: one 128-byte swizzle row
+constexpr int F_GROUP = 8;                     // chunks a group (256 channels)
+constexpr int F_REG = 4;                       // chunks of a group held in registers
+constexpr int F_RAW = F_SCOLS * ROWB;          // one source row's chunk, 6 KB
+constexpr int F_A = QR * SUB * ROWB;           // one sub-strip's fm1 chunk, 8 KB
+constexpr int F_STAGE = 2 * F_RAW;             // the raw chunk and its small parts, 12 KB
+                                               // (or one sub-strip's fm1 chunk)
+constexpr int F_NCONS = 128 * F_NSUB;
+constexpr int F_NSPLIT = 2;                    // splitter warps
+constexpr int F_NT = F_NCONS + 32 * (1 + F_NSPLIT);   // + a producer warp and the splitters
+static_assert(F_A <= F_STAGE && F_STAGE % ALIGN == 0 && F_RAW % ALIGN == 0,
+              "stages keep the 128-byte swizzle's 1 KB alignment");
+static_assert(F_TXW == 32 && F_NCONS == 256, "store_planes: a warp a 32-query run");
+
+struct F32Plan {
+  int nk;        // channel chunks
+  int group_nk;  // chunks a group (the kernel instance: 1, 2, 4 or 8)
+  int nstage;    // ring stages
+  int res_bytes, out_bytes, smem;   // res: the group's fm1 chunks past F_REG
+};
+
+F32Plan make_f32_plan(int C, int r) {
+  F32Plan p;
+  p.nk = (C + F_CK - 1) / F_CK;
+  p.group_nk = p.nk >= F_GROUP ? F_GROUP : p.nk > 2 ? 4 : p.nk;
+  p.res_bytes = (p.group_nk > F_REG ? p.group_nk - F_REG : 0) * F_NSUB * F_A;
+  p.out_bytes = epilogue_bytes(NHWC, r, F_TXW, 4, F_NCONS);   // the tile in both modes
+  const int avail = SMEM_LIMIT - STATIC_RESERVE - ALIGN - p.res_bytes - p.out_bytes;
+  p.nstage = avail / F_STAGE < MAX_STAGES ? avail / F_STAGE : MAX_STAGES;
+  p.smem = ALIGN + p.nstage * F_STAGE + p.res_bytes + p.out_bytes;
+  return p;
+}
+
+// NK: chunks a group; C > 32*NK runs in groups of NK chunks (GROUPS; NK =
+// 4 or 8), else in one group, and an instance without GROUPS has no add
+// path in its consumer loop. Of a group, the first NKR = min(NK, F_REG)
+// chunks are held in registers, the rest resident in shared memory. The
+// ring carries, per group, the register chunks (one sub-strip's chunk a
+// stage), then the source rows (every chunk of each). `out`: f32 NHWC or f32
+// planes (PLANAR).
+template <int NK, int MODE, bool GROUPS>
+__global__ void __launch_bounds__(F_NT, 1)
+sweep_f32_kernel(const __grid_constant__ CUtensorMap map1,
+                 const __grid_constant__ CUtensorMap map2, void* __restrict__ out,
+                 const Args a) {
+  constexpr int NKR = NK < F_REG ? NK : F_REG, NKS = NK - NKR;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], ready[MAX_STAGES], empty[MAX_STAGES],
+      res_full, res_empty;
+
+  const int D = 2 * a.r + 1, DD = D * D;
+  const int x0 = blockIdx.x * F_TXW, y0 = blockIdx.y * QR, b = blockIdx.z;
+  const int nj = min(F_NSUB, (a.W - x0 + SUB - 1) / SUB);   // sub-strips inside the image
+  const int s_lo = max(0, y0 - a.r), s_hi = min(a.H - 1, y0 + QR - 1 + a.r);
+  const int ngroups = GROUPS ? (a.nk + NK - 1) / NK : 1;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring_s = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  const uint32_t res_s = ring_s + a.nstage * F_STAGE;   // [chunk - NKR][sub-strip]: 8 KB each
+  unsigned char* epi = smem_raw + (res_s + NKS * F_NSUB * F_A - raw);   // the epilogue's
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.nstage; ++i) {
+      mbar_init(smem_u32(&full[i]), 1);
+      mbar_init(smem_u32(&ready[i]), F_NSPLIT);            // one arrival per splitter warp
+      mbar_init(smem_u32(&empty[i]), F_NCONS / 32);   // one arrival per consumer warp
+    }
+    mbar_init(smem_u32(&res_full), 1);
+    mbar_init(smem_u32(&res_empty), F_NCONS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const dim3 grid((W + RM_COLS - 1) / RM_COLS, (H + RM_ROWS - 1) / RM_ROWS, B);
-  kernel<<<grid, G::NT, smem, stream>>>(static_cast<const T*>(fm1),
-                                        static_cast<const T*>(fm2),
-                                        static_cast<T*>(out), H, W, C, lanes, scale);
+  __syncthreads();
+
+  // the role as a value ptxas can see is warp-uniform (see bf16)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp > F_NCONS / 32) {
+    // ---- splitters: as each stage lands, the small parts of its 48 raw
+    // columns (the same swizzled layout, F_RAW further on), for both
+    // consumer warpgroups; then `ready`. fm1 stages pass through.
+    const int lane = threadIdx.x & 31, sp = warp - F_NCONS / 32 - 1;
+    int stage = 0, phase = 0;
+    auto pass = [&](bool split) {
+      mbar_wait(smem_u32(&full[stage]), phase);
+      if (split) {
+        const uint32_t st = ring_s + stage * F_STAGE;
+        constexpr int PER = F_RAW / 16 / (32 * F_NSPLIT);   // 16-byte units a lane
+        uint4 v[PER];
+#pragma unroll
+        for (int i = 0; i < PER; ++i)
+          asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(v[i].x), "=r"(v[i].y), "=r"(v[i].z), "=r"(v[i].w)
+                       : "r"(st + 16 * ((sp * PER + i) * 32 + lane)));
+#pragma unroll
+        for (int i = 0; i < PER; ++i)
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                       ::"r"(st + F_RAW + 16 * ((sp * PER + i) * 32 + lane)),
+                         "r"(tf32_small(v[i].x)), "r"(tf32_small(v[i].y)),
+                         "r"(tf32_small(v[i].z)), "r"(tf32_small(v[i].w)) : "memory");
+        fence_proxy_async();   // visible to the tensor cores' reads
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&ready[stage]));
+      if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+    };
+    for (int g = 0; g < ngroups; ++g) {
+      const int nkg = min(NK, a.nk - g * NK);
+      for (int i = 0; i < min(nkg, NKR) * F_NSUB; ++i) pass(false);
+      for (int i = 0; i < (s_hi - s_lo + 1) * nkg; ++i) pass(true);
+    }
+    return;
+  }
+  if (role == F_NSUB) {
+    // ---- producer: one thread issues every TMA load, in the order the
+    // consumers take the stages ----
+    if (threadIdx.x == F_NCONS) {
+      prefetch_maps(&map1, &map2);
+      int stage = 0, phase = 0;
+      for (int g = 0; g < ngroups; ++g) {
+        const int nkg = min(NK, a.nk - g * NK);
+        if (nkg > NKR) {   // the resident chunks, once the last group's products are done
+          if (g > 0) mbar_wait(smem_u32(&res_empty), (g - 1) & 1);
+          const uint32_t bar = smem_u32(&res_full);
+          mbar_expect_tx(bar, (nkg - NKR) * nj * F_A);
+          for (int k = NKR; k < nkg; ++k)
+            for (int jj = 0; jj < nj; ++jj)
+              tma_load(res_s + ((k - NKR) * F_NSUB + jj) * F_A, &map1, (g * NK + k) * F_CK,
+                       x0 + SUB * jj, y0, b, bar);
+        }
+        for (int k = 0; k < min(nkg, NKR); ++k)
+          for (int jj = 0; jj < F_NSUB; ++jj) {   // fm1 for registers: one sub-strip's chunk a stage
+            mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+            const uint32_t bar = smem_u32(&full[stage]);
+            if (jj < nj) {
+              mbar_expect_tx(bar, F_A);
+              tma_load(ring_s + stage * F_STAGE, &map1, (g * NK + k) * F_CK, x0 + SUB * jj, y0,
+                       b, bar);
+            } else {
+              mbar_arrive(bar);   // past the image: nothing to load
+            }
+            if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+          }
+        for (int s = s_lo; s <= s_hi; ++s)   // rows outside the image: nothing to load
+          for (int k = 0; k < nkg; ++k) {
+            mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+            const uint32_t bar = smem_u32(&full[stage]);
+            mbar_expect_tx(bar, F_RAW);
+            tma_load(ring_s + stage * F_STAGE, &map2, (g * NK + k) * F_CK, x0 - a.r, s, b, bar);
+            if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+          }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup `role` computes sub-strip j = role; its warp w
+  // the query row y0 + w. Every wgmma is issued on a path all 128 threads of
+  // the warpgroup take: a sub-strip past the image edge, or channels past
+  // C, are computed on stale data or zeros and dropped.
+  const int j = role, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  // A fragments, raw f32: chunk k, k step kk holds rows 16w + gq (+8) x
+  // channels 8kk + tq (+4) of the sub-strip's A, as wgmma reads A; the
+  // swizzled 128-byte row of an fm1 pixel puts them in 16-byte chunks 2kk
+  // (+1), XORed with the row (gq)
+  auto load_a = [&](uint32_t (&f)[4], uint32_t row, int kk) {
+    f[0] = lds32(row + (((2 * kk) ^ gq) << 4));
+    f[1] = lds32(row + 8 * ROWB + (((2 * kk) ^ gq) << 4));
+    f[2] = lds32(row + (((2 * kk + 1) ^ gq) << 4));
+    f[3] = lds32(row + 8 * ROWB + (((2 * kk + 1) ^ gq) << 4));
+  };
+  const uint32_t a_row = (16 * w + gq) * ROWB + 4 * tq;
+  uint32_t fa[NKR * 4][4];
+  float acc[16] = {};
+  float* so = reinterpret_cast<float*>(epi);   // the (4, 32, d^2) tile, both modes
+  // the band of source row s for query row y0 + w (how 0: zeros, 1: set,
+  // 2: add to the group before); accumulator element i is (query m, column
+  // n) with m = lane/4 + 8*((i>>1)&1), n = 8*(i>>2) + 2*(lane%4) + (i&1),
+  // dx = n - m
+  auto band = [&](int s, int how) {
+    const int dy = s - (y0 + w) + a.r;
+    if (dy < 0 || dy >= D || j >= nj) return;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int m = gq + 8 * ((i >> 1) & 1);
+      const int dx = 8 * (i >> 2) + 2 * tq + (i & 1) - m;
+      if (dx >= 0 && dx < D) {
+        float* o = so + (w * F_TXW + SUB * j + m) * DD + dx * D + dy;
+        const float v = acc[i] * a.scale;
+        *o = how == 0 ? 0.f : how == 1 ? v : *o + v;
+      }
+    }
+  };
+  for (int s = y0 - a.r; s < y0 + QR + a.r; ++s)
+    if (s < s_lo || s > s_hi) band(s, 0);   // zero outside the image
+
+  int stage = 0, phase = 0;
+  auto advance = [&]() {
+    if (++stage == a.nstage) { stage = 0; phase ^= 1; }
+  };
+  auto release = [&](int st) {
+    if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
+  };
+  // the warpgroup's 32 columns start at column 16j of the raw chunk and of
+  // its small parts (1 KB-aligned, so the 128-byte swizzle holds)
+  const uint32_t col_off = j * SUB * ROWB;
+  for (int g = 0; g < ngroups; ++g) {
+    const int nkg = min(NK, a.nk - g * NK);
+    // the register chunks of the group, one sub-strip's chunk a stage
+#pragma unroll
+    for (int k = 0; k < NKR; ++k) {
+      if (k >= nkg) break;
+#pragma unroll
+      for (int jj = 0; jj < F_NSUB; ++jj) {
+        mbar_wait(smem_u32(&ready[stage]), phase);
+        if (jj == j) {
+#pragma unroll
+          for (int kk = 0; kk < F_CK / 8; ++kk)
+            load_a(fa[k * 4 + kk], ring_s + stage * F_STAGE + a_row, kk);
+        }
+        __syncwarp();
+        release(stage);
+        advance();
+      }
+    }
+    if (nkg > NKR) mbar_wait(smem_u32(&res_full), g & 1);   // the resident chunks
+
+    int prev = -1;
+    // the products of chunk k of one source row, fm1 from registers
+    // (`regs` true: k < NKR, a static index) or from the resident chunks
+    auto chunk = [&](int k, auto regs) {
+      mbar_wait(smem_u32(&ready[stage]), phase);   // landed, small parts written
+      const uint32_t st = ring_s + stage * F_STAGE;
+#pragma unroll
+      for (int kk = 0; kk < F_CK / 8; ++kk) {
+        // the small parts are double-buffered: those of the k step before
+        // last are rewritten only after its products have retired
+        wgmma_wait<1>();
+        if (kk == 1) {   // every product of the previous stage has retired
+          if (prev >= 0) release(prev);
+          prev = -1;
+        }
+        // A's big part is the raw fragment (the tensor core ignores a TF32
+        // operand's low 13 bits), its small part split here. A resident
+        // chunk's fragment is read here too: registers that in-flight
+        // products read are rewritten only after a wait retires them
+        uint32_t fk[4];
+        if constexpr (decltype(regs)::value) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) fk[e] = fa[k * 4 + kk][e];
+        } else {
+          load_a(fk, res_s + ((k - NKR) * F_NSUB + j) * F_A + a_row, kk);
+        }
+        uint32_t small[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) small[e] = tf32_small(fk[e]);
+        wgmma_fence();
+        const uint64_t db_big = wgmma_desc(st + col_off + kk * 32);
+        const uint64_t db_small = wgmma_desc(st + F_RAW + col_off + kk * 32);
+        wgmma_tf32(acc, small, db_big, (k | kk) != 0);
+        wgmma_tf32(acc, fk, db_small, 1);
+        wgmma_tf32(acc, fk, db_big, 1);
+        wgmma_commit();
+      }
+      prev = stage;
+      advance();
+    };
+    for (int s = s_lo; s <= s_hi; ++s) {
+      // unrolled over the register chunks only: ptxas serializes every
+      // wgmma of a source row unrolled to 96 (C7512) but pipelines 48, and
+      // a loop of resident chunks
+#pragma unroll
+      for (int k = 0; k < NKR; ++k) {
+        if (k >= nkg) break;
+        chunk(k, std::true_type());
+      }
+#pragma unroll 1
+      for (int k = NKR; k < nkg; ++k) chunk(k, std::false_type());
+      wgmma_wait<0>();
+      fence_acc(acc);
+      release(prev);
+      prev = -1;
+      band(s, GROUPS && g > 0 ? 2 : 1);
+    }
+    __syncwarp();
+    if (nkg > NKR && lane == 0) mbar_arrive(smem_u32(&res_empty));   // resident chunks free
+  }
+
+  // every consumer warp's band is in the tile
+  asm volatile("bar.sync 3, %0;\n" ::"n"(F_NCONS) : "memory");
+  if constexpr (MODE == NHWC)
+    store_tile(static_cast<float*>(out), so, a, b, y0, x0, F_TXW, F_NCONS);
+  else
+    store_planes(static_cast<float*>(out), so, a, b, y0, x0);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the NHWC tensor as a 4-d map (C, W, H, B), boxes of bc channels (128
+// bytes) x bw columns x bh rows of one image, 128-byte swizzle, zeros out of
+// bounds
+bool encode_map(CUtensorMap* map, const void* ptr, bool f32, int B, int H, int W, int C,
+                int bc, int bw, int bh) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t pix = static_cast<cuuint64_t>(C) * (f32 ? 4 : 2);
+  const cuuint64_t strides[3] = {pix, pix * W, pix * W * H};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(bc), static_cast<cuuint32_t>(bw),
+                             static_cast<cuuint32_t>(bh), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+using Kernel = void (*)(CUtensorMap, CUtensorMap, void*, Args);
+
+// a kernel instance with its dynamic shared memory allowed (above 48 KB
+// needs the opt-in, once per size)
+cudaError_t allow(Kernel fn, int smem, int* allowed) {
+  if (smem <= *allowed) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) *allowed = smem;
+  return e;
+}
+
+template <int NKF, int MODE>
+cudaError_t bf16_instance(int smem, Kernel* fn) {
+  static int allowed = 0;
+  *fn = sweep_bf16_kernel<NKF, MODE>;
+  return allow(*fn, smem, &allowed);
+}
+
+template <int MODE>
+cudaError_t select_bf16(const Plan& p, Kernel* fn) {
+  if (p.nstage < 2) return cudaErrorInvalidValue;
+  switch (p.fm1_nk) {
+    case 1: return bf16_instance<1, MODE>(p.smem, fn);
+    case 2: return bf16_instance<2, MODE>(p.smem, fn);
+    case 3: return bf16_instance<3, MODE>(p.smem, fn);
+    case 4: return bf16_instance<4, MODE>(p.smem, fn);
+    default: return bf16_instance<0, MODE>(p.smem, fn);
+  }
+}
+
+template <int NK, int MODE, bool GROUPS>
+cudaError_t f32_instance(int smem, Kernel* fn) {
+  static int allowed = 0;
+  *fn = sweep_f32_kernel<NK, MODE, GROUPS>;
+  return allow(*fn, smem, &allowed);
+}
+
+template <int MODE>
+cudaError_t select_f32(const F32Plan& p, Kernel* fn) {
+  if (p.nstage < 2) return cudaErrorInvalidValue;
+  const bool groups = p.nk > p.group_nk;   // C past one group of chunks
+  switch (p.group_nk) {
+    case 1: return f32_instance<1, MODE, false>(p.smem, fn);
+    case 2: return f32_instance<2, MODE, false>(p.smem, fn);
+    case 4:
+      return groups ? f32_instance<4, MODE, true>(p.smem, fn)
+                    : f32_instance<4, MODE, false>(p.smem, fn);
+    default:
+      return groups ? f32_instance<8, MODE, true>(p.smem, fn)
+                    : f32_instance<8, MODE, false>(p.smem, fn);
+  }
+}
+
+template <int MODE>
+cudaError_t launch_bf16(const void* fm1, const void* fm2, void* out, int B, int H, int W,
+                        int C, int r, int lanes, float scale, cudaStream_t stream) {
+  const Plan p = make_plan(C, r, MODE);
+  Kernel fn;
+  cudaError_t e = select_bf16<MODE>(p, &fn);
+  if (e != cudaSuccess) return e;
+  CUtensorMap map1, map2;
+  if (!encode_map(&map1, fm1, false, B, H, W, C, CK, SUB, QR) ||
+      !encode_map(&map2, fm2, false, B, H, W, C, CK, SCOLS, 1))
+    return cudaErrorInvalidValue;
+  const Args a{H, W, C, r, lanes, p.nk, p.nstage, scale};
+  const dim3 grid((W + TXW - 1) / TXW, (H + QR - 1) / QR, B);
+  fn<<<grid, NTC, p.smem, stream>>>(map1, map2, out, a);
   return cudaGetLastError();
 }
 
-// 16-byte copies, whole MMA k-steps: aligned inputs, C*sizeof(T) a
-// multiple of 32
-template <typename T>
-bool valid_inputs(const void* fm1, const void* fm2, int B, int H, int W, int C) {
-  return (C * static_cast<int>(sizeof(T))) % KSTEP == 0 && C > 0 && B >= 1 &&
-         B <= 65535 && H >= 1 && H <= 65535 && W >= 1 &&
-         reinterpret_cast<uintptr_t>(fm1) % 16 == 0 &&
+template <int MODE>
+cudaError_t launch_f32(const void* fm1, const void* fm2, void* out, int B, int H, int W,
+                       int C, int r, int lanes, float scale, cudaStream_t stream) {
+  const F32Plan p = make_f32_plan(C, r);
+  Kernel fn;
+  cudaError_t e = select_f32<MODE>(p, &fn);
+  if (e != cudaSuccess) return e;
+  CUtensorMap map1, map2;
+  if (!encode_map(&map1, fm1, true, B, H, W, C, F_CK, SUB, QR) ||
+      !encode_map(&map2, fm2, true, B, H, W, C, F_CK, F_SCOLS, 1))
+    return cudaErrorInvalidValue;
+  const Args a{H, W, C, r, lanes, p.nk, p.nstage, scale};
+  const dim3 grid((W + F_TXW - 1) / F_TXW, (H + QR - 1) / QR, B);
+  fn<<<grid, F_NT, p.smem, stream>>>(map1, map2, out, a);
+  return cudaGetLastError();
+}
+
+bool valid_inputs(const void* fm1, const void* fm2, int B, int H, int W, int C, int r) {
+  // TMA boxes: 16-byte aligned inputs and pixel strides, C a multiple of 16
+  return C > 0 && C % 16 == 0 && B >= 1 && B <= 65535 && H >= 1 && H <= 65535 * QR &&
+         W >= 1 && r >= 1 && r <= 5 && reinterpret_cast<uintptr_t>(fm1) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(fm2) % 16 == 0;
 }
 
-template <typename T>
-int swapped(const void* fm1, const void* fm2, void* out, int B, int H, int W, int C,
-            int r, int h_tile, float scale, void* stream) {
-  if (!valid_inputs<T>(fm1, fm2, B, H, W, C)) return cudaErrorInvalidValue;
+template <typename T, int MODE>
+int dispatch(const void* fm1, const void* fm2, void* out, int B, int H, int W, int C, int r,
+             int lanes, float scale, void* stream) {
+  if (!valid_inputs(fm1, fm2, B, H, W, C, r)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (r) {
-    case 1: return swapped_rows<T, 1>(fm1, fm2, out, B, H, W, C, h_tile, scale, s);
-    case 2: return swapped_rows<T, 2>(fm1, fm2, out, B, H, W, C, h_tile, scale, s);
-    case 3: return swapped_rows<T, 3>(fm1, fm2, out, B, H, W, C, h_tile, scale, s);
-    case 4: return swapped_rows<T, 4>(fm1, fm2, out, B, H, W, C, h_tile, scale, s);
-    case 5: return swapped_rows<T, 5>(fm1, fm2, out, B, H, W, C, h_tile, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if constexpr (std::is_same<T, float>::value)
+    return launch_f32<MODE>(fm1, fm2, out, B, H, W, C, r, lanes, scale, s);
+  else
+    return launch_bf16<MODE>(fm1, fm2, out, B, H, W, C, r, lanes, scale, s);
 }
 
 template <typename T>
-int rotmxu(const void* fm1, const void* fm2, void* out, int B, int H, int W, int C,
-           int r, int lanes, float scale, void* stream) {
-  if (!valid_inputs<T>(fm1, fm2, B, H, W, C) || H + 2 * r > 128)
+int swapped(const void* fm1, const void* fm2, void* out, int B, int H, int W, int C, int r,
+            int h_tile, float scale, void* stream) {
+  if (h_tile != 8 && h_tile != 16 && h_tile != 32) return cudaErrorInvalidValue;
+  return dispatch<T, PLANAR>(fm1, fm2, out, B, H, W, C, r, 0, scale, stream);
+}
+
+template <typename T>
+int rotmxu(const void* fm1, const void* fm2, void* out, int B, int H, int W, int C, int r,
+           int lanes, float scale, void* stream) {
+  if (H + 2 * r > FULL_LANES || (lanes != FULL_LANES && lanes != (2 * r + 1) * (2 * r + 1)))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (r) {
-    case 1: return launch_rotmxu<T, 1>(fm1, fm2, out, B, H, W, C, lanes, scale, s);
-    case 2: return launch_rotmxu<T, 2>(fm1, fm2, out, B, H, W, C, lanes, scale, s);
-    case 3: return launch_rotmxu<T, 3>(fm1, fm2, out, B, H, W, C, lanes, scale, s);
-    case 4: return launch_rotmxu<T, 4>(fm1, fm2, out, B, H, W, C, lanes, scale, s);
-    case 5: return launch_rotmxu<T, 5>(fm1, fm2, out, B, H, W, C, lanes, scale, s);
-    default: return cudaErrorInvalidValue;
+  return dispatch<T, NHWC>(fm1, fm2, out, B, H, W, C, r, lanes, scale, stream);
+}
+
+template <int MODE>
+cudaError_t plan_of(bool bf16, int C, int r, const void** fn, int* smem, int* stages,
+                    int* threads) {
+  Kernel k = nullptr;
+  cudaError_t e;
+  if (bf16) {
+    const Plan p = make_plan(C, r, MODE);
+    e = select_bf16<MODE>(p, &k);
+    *smem = p.smem;
+    *stages = p.nstage;
+    *threads = NTC;
+  } else {
+    const F32Plan p = make_f32_plan(C, r);
+    e = select_f32<MODE>(p, &k);
+    *smem = p.smem;
+    *stages = p.nstage;
+    *threads = F_NT;
   }
+  *fn = reinterpret_cast<const void*>(k);
+  return e;
 }
 
 }  // namespace
@@ -581,7 +1075,8 @@ int rotmxu(const void* fm1, const void* fm2, void* out, int B, int H, int W, int
 // cudaGetLastError() after the launch (0 = launched).
 //
 // corr_swapped: out is planar (B, d^2, H, W) float32, channel dx*d + dy;
-// h_tile (8, 16 or 32) is the query rows a block.
+// h_tile (8, 16 or 32) is accepted for signature parity (a block owns 4
+// query rows whatever it is).
 extern "C" int local_corr_swapped_f32(const void* fm1, const void* fm2, void* out,
                                       int B, int H, int W, int C, int r, int h_tile,
                                       float scale, void* stream) {
@@ -606,6 +1101,26 @@ extern "C" int local_corr_rotmxu_bf16(const void* fm1, const void* fm2, void* ou
                                       int B, int H, int W, int C, int r, int lanes,
                                       float scale, void* stream) {
   return rotmxu<__nv_bfloat16>(fm1, fm2, out, B, H, W, C, r, lanes, scale, stream);
+}
+
+// The launch plan of corr_swapped (`swapped` != 0) or corr_rotmxu at (C, r)
+// in bf16 (`bf16` != 0) or f32: shared memory a block (bytes), ring stages,
+// resident blocks an SM (the CUDA occupancy calculator), registers a thread
+// and local memory a thread (bytes; above 0 means ptxas spilled); returns a
+// cudaError_t.
+extern "C" int local_corr_sweep_plan(int swapped, int bf16, int C, int r, int* smem,
+                                     int* stages, int* blocks_per_sm, int* regs,
+                                     int* local_bytes) {
+  const void* fn = nullptr;
+  int threads = 0;
+  cudaError_t e = swapped ? plan_of<PLANAR>(bf16, C, r, &fn, smem, stages, &threads)
+                          : plan_of<NHWC>(bf16, C, r, &fn, smem, stages, &threads);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return e;
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, threads, *smem);
 }
 
 extern "C" const char* local_corr_sweep_error_string(int err) {

@@ -124,6 +124,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                    lib.local_corr_rotmxu_f32, lib.local_corr_rotmxu_bf16):
             fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
             fn.restype = i
+        lib.local_corr_sweep_plan.argtypes = [i, i, i, i, p, p, p, p, p]
+        lib.local_corr_sweep_plan.restype = i
         lib.local_corr_sweep_error_string.argtypes = [i]
         lib.local_corr_sweep_error_string.restype = ctypes.c_char_p
 
@@ -279,12 +281,28 @@ def local_corr_csub_plan(C: int, r: int, dtype: torch.dtype) -> Dict[str, int]:
                     (v.value for v in out)))
 
 
+def local_corr_sweep_plan(kind: str, C: int, r: int, dtype: torch.dtype) -> Dict[str, int]:
+    """The launch plan of the sweep's ``swapped`` or ``rotmxu`` kernel at
+    (C, r) in ``dtype``: shared memory a block (bytes), ring stages, resident
+    blocks an SM (the CUDA occupancy calculator), registers a thread and
+    local memory a thread (bytes; ptxas spills)."""
+    lib = load("local_corr_sweep")
+    out = [ctypes.c_int() for _ in range(5)]
+    err = lib.local_corr_sweep_plan(int(kind == "swapped"), int(dtype == torch.bfloat16), C, r,
+                                    *(ctypes.byref(v) for v in out))
+    if err != 0:
+        msg = lib.local_corr_sweep_error_string(err).decode()
+        raise RuntimeError(f"local_corr_sweep_plan failed: {msg} (cudaError {err})")
+    return dict(zip(("smem_bytes", "stages", "blocks_per_sm", "registers", "local_bytes"),
+                    (v.value for v in out)))
+
+
 def launch_local_corr_sweep(kind: str, fm1: torch.Tensor, fm2: torch.Tensor,
                             out: torch.Tensor, r: int, tile: int,
                             scale: float) -> None:
     """Launch one of the kernel sweep's kernels on the current stream of the
-    tensors' device: ``swapped`` writes planar (B, d², H, W) float32 with
-    ``tile`` (8, 16 or 32) query rows a block; ``rotmxu`` writes (B, H, W,
+    tensors' device: ``swapped`` writes planar (B, d², H, W) float32
+    (``tile``, 8, 16 or 32, is accepted for signature parity); ``rotmxu`` writes (B, H, W,
     ``tile``) in the inputs' dtype, ``tile`` = 128 lanes or d². The callers
     in ``bench_tools.corr_sweep`` have checked device, dtype, shape and
     contiguity."""
