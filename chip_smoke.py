@@ -13,7 +13,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      registers and spills;
   2. kernels — call each kernel's wrapper on the card at the main paths'
      shapes, the eval shape (the first episode's query slices, 64×64,
-     C=256, r=5, bf16), the training shape (48 slices, f32) and the
+     C=256, r=5, bf16; and C=512 at 32×32 and 64×64, the VGG and ResNet
+     backbones' eval shapes), the training shape (48 slices, f32) and the
      forward's tiling edges in both dtypes (ragged 20×20 and 3×5, W past one
      32- or 64-query strip, C = 16, 48 and 320, r = 1..5), on outputs
      NaN-poisoned, and hold it against its plain PyTorch version: bf16 within
@@ -60,9 +61,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
      forward (pallas_mxu, csub, pdot, RPNET_ROT_PACK=1): 11 launches per
      episode of the selected kernel (pack: select for odd slice counts),
      refinement masks agreeing with phase 3's on > 99.9% of pixels;
+  3c. data paths — the same CLI on the same episodes and weights for 3
+     passes on each eval data path: the spec path (the example's defaults,
+     a device volume cache of 16: index-only episodes gathered on the card),
+     the prefetch path (cache 0, num_workers 4) and the plain host path
+     (cache 0, num_workers 0): every episode's metrics equal across the
+     paths, 11 launches an episode, no failure; each pass's episodes/s and
+     ``stage_timing`` logged (no forward hook); then one warm episode queued
+     on the spec and on the host path under
+     ``torch.cuda.set_sync_debug_mode("warn")``: no synchronizing call; and
+     one warm spec episode under ``torch.profiler`` (device time by kernel
+     group, device operations, busy share);
+  3d. breadth — the CLI on 2 episodes under ``backbone: vgg`` (scale 8),
+     ``backbone: resnet``, ``mask_feature_map: x2``, ``use_relation_enc:
+     concat`` and ``use_all_supports`` + ``multishot_fusion`` with 2 shots
+     and ``n_way: 2``: Wa·Sh + 10 launches an episode (none under concat),
+     no failed episode, every Dice finite;
   4. reference — the full-width model (random seeded weights, 3 refinement
      iterations) on a small input, f32 with TF32 off, on the card vs on the
-     CPU (plain versions): logits within 2e-3, masks agreeing on > 99.9%;
+     CPU (plain versions), for the U-Net, VGG and ResNet backbones: logits
+     within 2e-3, masks agreeing on > 99.9%;
   5. training path — the port's train CLI (``rpnet_tpu_torch.cli.train``)
      on a synthetic dataset of the train classes (Spleen, Kidney L,
      Kidney R; 48×272×272 volumes), configured by yamls/example.yml's
@@ -702,11 +720,34 @@ class switched:
                 os.environ[k] = v
 
 
-def run_eval_cli(yaml_path, env=None):
+class recorded_episodes:
+    """Every episode's metrics as the CLI settles it (``EpisodeRunner.finalize``
+    wrapped: it runs after the episode's own wait, so it adds no sync)."""
+
+    def __enter__(self):
+        from rpnet_tpu_torch.episode import pipeline
+
+        self.cls, self.orig, results = pipeline.EpisodeRunner, pipeline.EpisodeRunner.finalize, []
+        orig = self.orig
+
+        def finalize(runner, d):
+            results.append(orig(runner, d))
+            return results[-1]
+
+        self.cls.finalize = finalize
+        return results
+
+    def __exit__(self, *exc):
+        self.cls.finalize = self.orig
+
+
+def run_eval_cli(yaml_path, env=None, hook=True):
     """The eval CLI under the switches ``env``, launch counts set to 0 just
-    before and read just after; also records each model call's refinement
-    masks, every iteration, and its first iteration's logits (a global
-    forward hook; the CLI is untouched)."""
+    before and read just after, every episode's metrics recorded; with
+    ``hook``, also each model call's refinement masks, every iteration, and
+    its first iteration's logits (a global forward hook, which fetches them
+    to the host; the CLI is untouched). No failed episode, every Dice
+    finite."""
     import torch
 
     from rpnet_tpu_torch.cli import test_rpnet
@@ -714,35 +755,37 @@ def run_eval_cli(yaml_path, env=None):
 
     masks, logits = [], []
 
-    def hook(module, args, out):
+    def record(module, args, out):
         if isinstance(module, RPNet):
             ref = out["refinement"]
             masks.append((ref[..., 1] > ref[..., 0]).cpu())
             logits.append(ref[0].float().cpu())
 
-    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    handle = torch.nn.modules.module.register_module_forward_hook(record) if hook else None
     try:
-        with switched(env or {}):
+        with switched(env or {}), recorded_episodes() as episodes:
             reset_launches()
             t0 = time.time()
             results = test_rpnet.main(["--yaml", yaml_path])
             torch.cuda.synchronize()
             launches = read_launches()
     finally:
-        handle.remove()
+        if handle is not None:
+            handle.remove()
     results["wall"] = time.time() - t0
     n_eps = results["episodes"]
     if results["failed_episodes"]:
-        raise AssertionError(f"{results['failed_episodes']} of {n_eps} episodes failed")
+        raise AssertionError(f"{yaml_path}: {results['failed_episodes']} of {n_eps} "
+                             "episodes failed")
     for cls, r in results["classes"].items():
         vals = r["affine"] + r["fewshot"] + [v for mv in r["refinement"].values() for v in mv]
         if len(r["refinement"]) != 10 or not all(math.isfinite(v) for v in vals):
-            raise AssertionError(f"{cls}: non-finite or missing Dice {r}")
-    return results, launches, (masks, logits)
+            raise AssertionError(f"{yaml_path} {cls}: non-finite or missing Dice {r}")
+    return results, launches, (masks, logits), episodes
 
 
 def phase_main_path(yaml_path):
-    results, launches, outputs = run_eval_cli(yaml_path)
+    results, launches, outputs, _ = run_eval_cli(yaml_path)
     n_eps = results["episodes"]
     if n_eps < 3:
         raise AssertionError(f"only {n_eps} episodes ran")
@@ -770,7 +813,7 @@ def phase_eval_switches(yaml_path, dq, default_outputs):
     default_masks, default_logits = default_outputs
     out = {}
     for label, (env, wrapper) in EVAL_SWITCHES.items():
-        results, launches, (masks, logits) = run_eval_cli(yaml_path, env)
+        results, launches, (masks, logits), _ = run_eval_cli(yaml_path, env)
         n_eps = results["episodes"]
         if label == "pack":
             expect = {wrapper: 11 * sum(b % 2 == 0 for b in dq[:n_eps]),
@@ -794,6 +837,174 @@ def phase_eval_switches(yaml_path, dq, default_outputs):
             f"{scale:.4g})")
         if len(masks) != len(default_masks) or not agree > 0.999:
             raise AssertionError(f"{label}: masks agree on {agree} of the pixels")
+        out[label] = launches
+    return out
+
+
+# phase 3c: the eval CLI's data paths (the example's defaults take the spec
+# path); each runs DATA_PATH_RUNS passes, the later ones warm
+DATA_PATHS = {"spec": {}, "prefetch": {"device_volume_cache": 0, "num_workers": 4},
+              "plain": {"device_volume_cache": 0, "num_workers": 0}}
+DATA_PATH_RUNS = 3
+# phase 3d: eval breadth, 2 episodes each; (Wa, Sh) of the network's supports
+BREADTH = {"vgg": ({"backbone": "vgg", "scale": 8}, (1, 1)),
+           "resnet": ({"backbone": "resnet", "scale": 4}, (1, 1)),
+           "mask_x2": ({"mask_feature_map": "x2"}, (1, 1)),
+           "concat": ({"use_relation_enc": "concat"}, (1, 1)),
+           "multishot": ({"use_all_supports": True, "multishot_fusion": True, "n_shot": 2,
+                          "n_way": 2}, (2, 2))}
+
+
+def run_cli_config(cfg, label, **kw):
+    """:func:`run_eval_cli` without the hook on ``cfg`` updated by ``kw``
+    (its own out_dir) → (results, launches, episodes, the passes'
+    (stage_timing, pass_wall) lines from its log)."""
+    import yaml
+
+    out_dir = os.path.join(WORK, f"out_{label}")
+    path = os.path.join(WORK, f"eval_{label}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(cfg, out_dir=out_dir, **kw), f)
+    results, launches, _, episodes = run_eval_cli(path, hook=False)
+    with open(os.path.join(out_dir, "log_eval")) as f:
+        lines = [l.strip() for l in f]
+    passes = list(zip([l for l in lines if l.startswith("stage_timing")],
+                      [l for l in lines if l.startswith("pass_wall")]))
+    return results, launches, episodes, passes
+
+
+def phase_data_paths(cfg):
+    """The eval CLI on the main path's episodes and weights on each data path,
+    ``DATA_PATH_RUNS`` passes: the spec path (the example's defaults: device
+    volume cache 16), the prefetch path (cache 0, num_workers 4) and the
+    plain host path (cache 0, num_workers 0). Every episode's metrics equal
+    across the paths, 11 launches an episode, no failure; the warm passes'
+    episodes/s and stage_timing logged. Then a warm episode queued on each of
+    the spec and host paths under ``torch.cuda.set_sync_debug_mode("warn")``:
+    no synchronizing call (whether the episode was still running when the
+    call returned is logged: a device that keeps up with the host's enqueue
+    may have run all of it). Then one warm spec episode profiled."""
+    per_path, launches_all = {}, {}
+    for label, kw in DATA_PATHS.items():
+        results, launches, episodes, passes = run_cli_config(
+            cfg, f"data_{label}", n_runs=DATA_PATH_RUNS, **kw)
+        n_eps = results["episodes"]
+        expect = {"local_correlation": 11 * n_eps}
+        if launches != expect:
+            raise AssertionError(f"data path {label}: launches {launches}, expected {expect}")
+        per_path[label] = episodes
+        launches_all[label] = launches
+        n_pass = n_eps // DATA_PATH_RUNS
+        for i, (timing, wall) in enumerate(passes):
+            secs = float(wall.split()[1].rstrip("s"))
+            log(f"[data-{label}] pass {i + 1}{' (warm)' if i else ''}: "
+                f"{n_pass / secs:.3f} episodes/s, {wall}; {timing}")
+        log(f"[data-{label}] {n_eps} episodes in {DATA_PATH_RUNS} passes, CLI wall "
+            f"{results['wall']:.1f}s, launches {launches}")
+    ref = per_path["plain"]
+    for label, episodes in per_path.items():
+        if episodes != ref:
+            diff = next(i for i, (a, b) in enumerate(zip(episodes, ref)) if a != b) \
+                if len(episodes) == len(ref) else "count"
+            raise AssertionError(f"data path {label}: episode metrics differ from the plain "
+                                 f"path's (first at {diff})")
+    log(f"[data] every episode's metrics equal on the spec, prefetch and plain paths "
+        f"({len(ref)} episodes each)")
+    check_dispatch_does_not_block(cfg)
+    return launches_all
+
+
+def check_dispatch_does_not_block(cfg):
+    """One warm episode queued on the spec and on the host path under the
+    sync debug mode, then one warm spec episode profiled."""
+    import warnings
+
+    import torch
+
+    from rpnet_tpu_torch.cli.test_rpnet import build_runner
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.episode.sampler import EpisodeSampler
+
+    config = Config(cfg)
+    config = config.replace(n_iter_refinement=config["n_test_iter_refinement"])
+    runner = build_runner(config, torch.device("cuda"))
+    sampler = EpisodeSampler(config["data_dir"], config["eval_set_name"], config)
+    picks = sampler.draw_supports(1)
+    spec = sampler.sample_spec(1, picks=picks)
+    ep = sampler.sample(1, picks=picks)
+
+    def synchronizing_calls(fn):
+        """fn() under the sync debug mode → (its result, the synchronizing
+        calls it made, host ms)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                out = fn()
+                host_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # (setting the mode itself warns that it is a prototype)
+        return out, [str(w.message) for w in caught
+                     if "called a synchronizing" in str(w.message)], host_ms
+
+    # the control: a known synchronizing call is seen
+    _, control, _ = synchronizing_calls(lambda: torch.ones(1, device="cuda").item())
+    if not control:
+        raise AssertionError("the sync debug mode did not see .item()")
+    log(f"[data-sync] control: .item() under the sync debug mode seen as {len(control)} "
+        "synchronizing call(s)")
+    for label, queue in (("spec", lambda: runner.dispatch_spec(spec, sampler)),
+                         ("host", lambda: runner.dispatch(ep))):
+        runner.finalize(queue())   # warm: first-use builds and allocations
+        torch.cuda.synchronize()
+        d, syncs, host_ms = synchronizing_calls(queue)
+        running = not d.done.query()
+        t1 = time.perf_counter()
+        runner.finalize(d)
+        wait_ms = (time.perf_counter() - t1) * 1e3
+        log(f"[data-sync] {label} dispatch: {host_ms:.1f} ms on the host, episode still "
+            f"running when it returned: {running}, then {wait_ms:.1f} ms to its result; "
+            f"synchronizing calls in the dispatch: {len(syncs)}")
+        if syncs:
+            raise AssertionError(f"{label} dispatch blocks the host: {syncs[:3]}")
+    # where a warm spec episode's time goes: dispatch (the host's enqueue)
+    # and settle, profiled
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()   # (after the profiler's own start)
+        runner.finalize(runner.dispatch_spec(spec, sampler))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log_device_profile("data-profile", "one warm spec episode (dispatch + settle)", prof,
+                       wall_ms)
+
+
+def phase_breadth(cfg, paths):
+    """The eval CLI at 256² under each ``BREADTH`` configuration on 2
+    episodes: Wa·Sh + 10 launches of local_correlation an episode (none under
+    concat), no failed episode, every Dice finite."""
+    with open(paths["test_csv"]) as f:
+        pids = [l.strip() for l in f if l.strip()][:2]
+    split = os.path.join(WORK, "breadth_test.csv")
+    with open(split, "w") as f:
+        f.write("\n".join(pids) + "\n")
+    out = {}
+    for label, (kw, (Wa, Sh)) in BREADTH.items():
+        results, launches, _, passes = run_cli_config(
+            cfg, f"breadth_{label}", eval_set_name=split, n_runs=1, **kw)
+        n_eps = results["episodes"]
+        expect = {} if kw.get("use_relation_enc") == "concat" else \
+            {"local_correlation": (Wa * Sh + 10) * n_eps}
+        r = next(iter(results["classes"].values()))
+        log(f"[breadth-{label}] {n_eps} episodes, {results['episodes_per_sec']:.3f} "
+            f"episodes/s (cold, CLI wall {results['wall']:.1f}s), dice affine "
+            f"{r['affine'][0]:.4f}, fewshot {r['fewshot'][0]:.4f}, launches {launches}; "
+            f"{passes[0][0]}")
+        if n_eps != 2 or launches != expect:
+            raise AssertionError(f"breadth {label}: {n_eps} episodes, launches {launches}, "
+                                 f"expected {expect}")
         out[label] = launches
     return out
 
@@ -942,6 +1153,16 @@ def profile_train_step(cfg):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
+    log_device_profile("train-profile", "one warm step", prof, wall_ms)
+
+
+def log_device_profile(tag: str, what: str, prof, wall_ms: float):
+    """Device time by kernel group (correlation, cuDNN convolutions, other),
+    the device operations run, the busy share of ``wall_ms`` and the top ten
+    kernels of a ``torch.profiler`` run (a measurement; nothing is
+    checked)."""
+    import torch
+
     def dev_ms(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
 
@@ -960,11 +1181,11 @@ def profile_train_step(cfg):
         groups[g] += dev_ms(e)
     total = sum(groups.values())
     top = sorted(events, key=dev_ms, reverse=True)[:10]
-    log(f"[train-profile] one warm step: wall {wall_ms:.2f} ms, device time "
-        f"{total:.2f} ms (busy share {total / wall_ms:.3f}); by group "
-        + json.dumps({k: round(v, 3) for k, v in groups.items()}))
+    log(f"[{tag}] {what}: wall {wall_ms:.2f} ms, device time {total:.2f} ms (busy share "
+        f"{total / wall_ms:.3f}) in {sum(e.count for e in events)} device operations; "
+        "by group " + json.dumps({k: round(v, 3) for k, v in groups.items()}))
     for e in top:
-        log(f"[train-profile]   {dev_ms(e):9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+        log(f"[{tag}]   {dev_ms(e):9.3f} ms  {e.count:5d}x  {e.key[:90]}")
 
 
 def phase_train_reference():
@@ -1015,7 +1236,7 @@ def phase_train_reference():
         raise AssertionError("the train step on the card disagrees with the CPU")
 
 
-def phase_reference():
+def phase_reference(backbone: str = "UNet"):
     """Full-width model on the card (kernel) vs on the CPU (plain), f32."""
     import numpy as np
     import torch
@@ -1024,7 +1245,8 @@ def phase_reference():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = {"mask_refinement_correlation_radius": 5, "scale": 4}
+    cfg = {"mask_refinement_correlation_radius": 5, "backbone": backbone,
+           "scale": 8 if backbone == "vgg" else 4}
     model = build_rpnet(cfg, num_iter=3, seed=1)
     rng = np.random.RandomState(0)
     B, H = 2, 64
@@ -1040,7 +1262,7 @@ def phase_reference():
         out = model.to("cuda")(*[a.cuda() for a in args])["refinement"].cpu()
     err = (out - ref).abs().max().item()
     agree = ((out[..., 1] > out[..., 0]) == (ref[..., 1] > ref[..., 0])).float().mean().item()
-    log(f"[reference] full-width model, 3 iterations, 2x64x64: card vs CPU "
+    log(f"[reference] full-width {backbone} model, 3 iterations, 2x64x64: card vs CPU "
         f"max |logit diff| {err:.2e} (atol 2e-3), mask agreement {agree:.5f}")
     if not (err <= 2e-3 and agree > 0.999):
         raise AssertionError("the model on the card disagrees with the CPU reference")
@@ -1108,6 +1330,10 @@ def main() -> int:
 
     bf16, f32 = torch.bfloat16, torch.float32
     main_case = check_local_corr((dq[0], 64, 64, 256), 5, bf16, seed=1, timed=True)
+    # the breadth backbones' shapes (512 channels, two 256-channel groups):
+    # VGG's 1/8 and ResNet's 1/4 of the 256² crops
+    wide = {name: check_local_corr((dq[0], hw, hw, 512), 5, bf16, seed=4 + i, timed=True)
+            for i, (name, hw) in enumerate((("vgg", 32), ("resnet", 64)))}
     check_local_corr((32, 64, 64, 256), 5, bf16, seed=2, timed=True)
     check_local_corr((32, 64, 64, 256), 5, f32, seed=3, timed=True)
     # the bf16 kernel's tiling edges: W past one 64-query strip, C not a
@@ -1162,17 +1388,20 @@ def main() -> int:
 
     _, launches, default_outputs = phase_main_path(yaml_path)
     eval_launches = phase_eval_switches(yaml_path, dq, default_outputs)
+    data_launches = phase_data_paths(cfg)
+    breadth_launches = phase_breadth(cfg, paths)
     measure_bf16_rounding()
-    phase_reference()
+    for backbone in ("UNet", "vgg", "resnet"):
+        phase_reference(backbone)
     train_yaml, train_cfg = make_train_config()
     train_res, train_launches, _ = phase_training(train_yaml, train_cfg)
     switch_launches = phase_train_switches(train_cfg, train_res["step_losses"][0])
     profile_train_step(train_cfg)
     phase_train_reference()
 
-    def entry(name, source, replaces, res, n_launches):
+    def entry(name, source, replaces, res, n_launches, **extra):
         """``replaces``: a line of rpnet_tpu/ops/pallas/correlation.py, or
-        "file:line" of another file."""
+        "file:line" of another file; ``extra``: more keys of the entry."""
         if isinstance(replaces, int):
             replaces = f"rpnet_tpu/ops/pallas/correlation.py:{replaces}"
         return {"name": name, "route": "cuda",
@@ -1183,15 +1412,21 @@ def main() -> int:
                 "bound_by": res["bound_by"], "bound_unit": res["bound_unit"],
                 "library_ms": None,      # no single PyTorch call computes it
                 # corr_swapped: its kernel alone, before the wrapper's transpose
-                **({"kernel_ms": res["kernel_ms"]} if "kernel_ms" in res else {})}
+                **({"kernel_ms": res["kernel_ms"]} if "kernel_ms" in res else {}), **extra}
 
     def opt_in(wrapper):   # launches over the path runs that select it
         return sum(run.get(wrapper, 0) for run in
                    list(eval_launches.values()) + list(switch_launches.values()))
 
+    # row 1: the main path's count beside its timed shape; the data-path and
+    # breadth runs' counts per run, and the C = 512 shapes' times, beside it
+    row1_runs = {"main": launches, **{f"data-{k}": v for k, v in data_launches.items()},
+                 **{f"breadth-{k}": v for k, v in breadth_launches.items()}}
     kernels = [
         entry("local_correlation", "local_corr.cu", 289, main_case,
-              launches["local_correlation"]),
+              launches["local_correlation"],
+              launches_by_run={k: v.get("local_correlation", 0) for k, v in row1_runs.items()},
+              wide_shapes=wide),
         entry("local_correlation_train_forward", "local_corr.cu", 36, train_fwd,
               train_launches["local_correlation"]),
         entry("local_correlation_bwd", "local_corr_bwd.cu", 776, train_bwd,
@@ -1209,6 +1444,10 @@ def main() -> int:
         entry("corr_rotmxu", "local_corr_sweep.cu", "bench_tools/corr_sweep.py:100",
               sweep_timed[("rotmxu", "bfloat16")], sweep_launches["corr_rotmxu"]),
     ]
+    for name, res in wide.items():
+        log(f"[kernels] {name} shape, local_correlation: {json.dumps(res)}")
+    log(f"[kernels] local_correlation launches: main path {launches}, data paths "
+        f"{data_launches}, breadth {breadth_launches}")
     for kind, res in variant_train.items():
         log(f"[kernels] training shape, {kind}: {json.dumps(res)}")
     for (kind, dtype), res in sweep_timed.items():

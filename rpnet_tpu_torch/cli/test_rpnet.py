@@ -10,6 +10,14 @@ support draws, overrides ``n_iter_refinement`` with
 block, tees stdout to ``out_dir/log_eval`` and writes ``results_eval.json``
 with the same keys.
 
+The data path is the JAX CLI's: with ``device_volume_cache`` > 0 (the
+default) an episode ships as slice indices into volumes held on the device
+(``EpisodeSpec``); with the cache off, ``num_workers`` threads assemble the
+episodes ahead on the host. Episode j is queued before episode j - 1 is
+settled. The ``stage_timing`` line reports the host seconds of the ``data``,
+``dispatch`` and ``episode_compute`` (waiting for an episode's result)
+stages.
+
 It runs on the GPU (``--platform gpu``, the default) and raises when there
 is none; ``--platform cpu`` runs on the CPU with the kernels' plain versions.
 ``ckpt: null`` gives a seeded init; a ``.pth`` path loads a torch checkpoint.
@@ -18,6 +26,7 @@ is none; ``--platform cpu`` runs on the CPU with the kernels' plain versions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -32,7 +41,8 @@ import torch
 
 from rpnet_tpu_torch.config import Config, load_yaml
 from rpnet_tpu_torch.episode.pipeline import EpisodeRunner
-from rpnet_tpu_torch.episode.sampler import EpisodeSampler
+from rpnet_tpu_torch.episode.prefetch import EpisodeFailure, PrefetchingSampler
+from rpnet_tpu_torch.episode.sampler import EpisodeSampler, EpisodeSpec
 from rpnet_tpu_torch.models.factory import build_rpnet
 from rpnet_tpu_torch.utils.logger import Logger
 
@@ -78,9 +88,14 @@ class _StageTimer:
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
 
-    def add(self, name: str, seconds: float):
-        self.totals[name] += seconds
-        self.counts[name] += 1
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
 
     def report(self) -> str:
         parts = [f"{k}={self.totals[k]:.3f}s/{self.counts[k]}x"
@@ -89,33 +104,52 @@ class _StageTimer:
 
 
 def evaluate(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
-    """One eval pass (reference eval(), test_rpnet.py:151-258).
+    """One eval pass (reference eval(), test_rpnet.py:151-258), as the JAX
+    CLI's ``evaluate`` runs it.
 
-    Each episode runs under its own try/except, as in the JAX CLI: a failure
-    is logged and counted, and the pass goes on. Callers check the count.
+    Every episode's supports are drawn first, from the shared seed. An
+    episode takes the index-only path (:meth:`EpisodeSampler.sample_spec`,
+    :meth:`EpisodeRunner.dispatch_spec`) where the runner has a device
+    volume cache and the sampler gives a spec; otherwise it is assembled on
+    the host, by ``num_workers`` prefetch threads where there are any. The
+    episodes are pipelined: episode j is queued before episode j - 1 is
+    settled, and the lines print in index order. Each episode's data,
+    dispatch and settle run under their own try/except, as in the JAX CLI:
+    a failure is logged and counted, and the pass goes on. Callers check the
+    count.
     """
     eval_classes = config["eval_classes"]
     n_eps = len(sampler)
     timer = _StageTimer()
-    # all supports of the pass are drawn first, from the shared seed
     all_picks = [sampler.draw_supports(j) for j in range(n_eps)]
+    use_spec = runner.supports_spec
+
+    if config.get("num_workers", 0) and not use_spec:
+        iterator = iter(PrefetchingSampler(
+            sampler, lookahead=2, workers=int(config["num_workers"]),
+            picks=all_picks))
+
+        def fetch(j):
+            ep = next(iterator)
+            if isinstance(ep, EpisodeFailure):
+                raise ep.exc
+            return ep
+    else:
+        def fetch(j):
+            return sampler.sample(j, picks=all_picks[j])
 
     dsc_affine_list = defaultdict(list)
     dsc_fewshot_list = defaultdict(list)
     dsc_refinement_list = defaultdict(lambda: defaultdict(list))
-    failures = 0
-    for j in range(n_eps):
+
+    def settle(j, ep, queued) -> int:
+        """Wait for a queued episode, record and print it; 1 if it failed."""
         try:
-            t0 = time.perf_counter()
-            ep = sampler.sample(j, picks=all_picks[j])
-            t1 = time.perf_counter()
-            res = runner.run(ep)
-            timer.add("data", t1 - t0)
-            timer.add("episode", time.perf_counter() - t1)
+            with timer.stage("episode_compute"):
+                res = runner.finalize(queued)
         except Exception:
-            failures += 1
             print(f"{j} EPISODE FAILED — skipping:\n{traceback.format_exc()}")
-            continue
+            return 1
         cls = eval_classes[ep.class_id]
         supp_pid = sampler.data_info[ep.supp_pids[0][0]][ep.supp_pids[0][1]]["pid"]
         print(f"{j} {ep.pid} {supp_pid} affine ({res['ncc_warped']:.4f}, "
@@ -127,6 +161,31 @@ def evaluate(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
             dsc_refinement_list[cls][it].append(v)
             print(f"ref {it} {v}, ", end=" ")
         print()
+        return 0
+
+    failures = 0
+    pending = None
+    for j in range(n_eps):
+        try:
+            with timer.stage("data"):
+                ep = sampler.sample_spec(j, picks=all_picks[j]) if use_spec else None
+                if ep is None:
+                    ep = fetch(j)
+            with timer.stage("dispatch"):
+                queued = (runner.dispatch_spec(ep, sampler)
+                          if isinstance(ep, EpisodeSpec) else runner.dispatch(ep))
+        except Exception:
+            if pending is not None:
+                failures += settle(*pending)
+                pending = None
+            failures += 1
+            print(f"{j} EPISODE FAILED — skipping:\n{traceback.format_exc()}")
+            continue
+        if pending is not None:
+            failures += settle(*pending)
+        pending = (j, ep, queued)
+    if pending is not None:
+        failures += settle(*pending)
 
     for cls in eval_classes:
         aff = [d for d in dsc_affine_list[cls] if d is not None]

@@ -35,7 +35,7 @@ from rpnet_tpu_torch.config import Config, load_yaml
 from rpnet_tpu_torch.episode.sampler import EpisodeSampler
 from rpnet_tpu_torch.models.factory import build_rpnet
 from rpnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
-from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
+from rpnet_tpu_torch.train.trainer import check_ported, make_optimizer, make_train_step
 from rpnet_tpu_torch.utils.logger import Logger
 
 parser = argparse.ArgumentParser(description="RP-Net training (PyTorch)")
@@ -80,6 +80,7 @@ def collate_batch(episodes, target_k: int = None) -> tuple:
 
 
 def _check_ported(config: Config) -> None:
+    check_ported(config)
     if config.get("net", "RP_Net") != "RP_Net":
         raise NotImplementedError("rpnet_tpu_torch trains RP_Net only "
                                   "(LGCANet_V3 is not ported yet)")

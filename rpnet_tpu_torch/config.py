@@ -50,11 +50,13 @@ _DEFAULTS: Dict[str, Any] = {
     "eval_classes": ["Liver"],
     # --- model (net/model.py:4-7, net/rp_net.py:195-224) ---
     "net": "RP_Net",
-    "backbone": "UNet",
-    "scale": 4,                # feature-map downsample used for mask pooling
+    "backbone": "UNet",        # vgg | UNet | resnet
+    "scale": None,             # feature-map downsample used for mask pooling:
+                               # 8 for vgg, 4 otherwise (rpnet_tpu/models/
+                               # factory.py:22; set in Config)
     "unet_normalize_type": "BatchNorm2d",
-    "mask_feature_map": "no",
-    "use_relation_enc": "relation",
+    "mask_feature_map": "no",  # U-Net mask injection: x, x2, x3, x5 or no
+    "use_relation_enc": "relation",  # relation | concat
     "pretrained_path": None,   # not ported (raises when set)
     # --- refinement (net/rp_net.py:201, :281-312; example.yml:107-110) ---
     "n_iter_refinement": 4,
@@ -93,8 +95,13 @@ _DEFAULTS: Dict[str, Any] = {
     "volume_cache": 8,         # sampler LRU over preprocessed volumes
                                # (entries; 0 disables): eval revisits the
                                # same volumes every run
-    "use_all_supports": False,  # not ported (raises when set)
-    "multishot_fusion": False,  # not ported (raises when set)
+    "device_volume_cache": 16,  # device-resident (pid, roi) volume LRU for
+                                # eval (entries; 0 disables): episodes ship
+                                # as slice indices (EpisodeSpec)
+    "num_workers": 4,           # eval prefetch threads when the device
+                                # cache is off (episode/prefetch.py)
+    "use_all_supports": False,  # one shot per support volume (eval)
+    "multishot_fusion": False,  # register every shot, fuse over shots
     "eval_3d": False,           # not ported (raises when set)
 }
 
@@ -111,6 +118,8 @@ class Config:
         merged.update({k: v for k, v in self.raw.items() if v is not None or k not in _DEFAULTS})
         if merged.get("test_shot") is None:
             merged["test_shot"] = merged["n_shot"]
+        if merged.get("scale") is None:
+            merged["scale"] = 8 if merged["backbone"] == "vgg" else 4
         self._d = merged
 
     def __getitem__(self, key):

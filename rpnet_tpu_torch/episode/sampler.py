@@ -12,18 +12,23 @@ The port's copy of ``rpnet_tpu/episode/sampler.py``
     stream, so a seed draws the same supports in either CLI;
   * slice binning — k evenly spaced support slices matched to query-slice
     bins (few_shot_reader.py:465-545), with the eval-mode ``test_shot``
-    shot-offset expansion;
+    shot-offset expansion, or with ``use_all_supports`` one shot per
+    support volume;
+  * the index-only eval episode — :meth:`EpisodeSampler.sample_spec` gives
+    an :class:`EpisodeSpec` (volume keys and slice rows) that the runner
+    assembles on the device from its volume cache;
   * train-mode augmentation — gamma jitter + random affine + shuffle
     (few_shot_reader.py:482-515), drawing from stdlib ``random`` and the
     global numpy stream in the JAX package's order, so both samplers give
     identical training episodes from one seed. The affine warp is numpy
     (:func:`warp_affine_nearest`), value for value OpenCV's.
 
-Volumes are read through the port's own NRRD codec. The native raw cache
-and the index-only ``sample_spec`` twin are not ported yet (ROADMAP.md).
+Volumes are read through the port's own NRRD codec. The native raw cache is
+not ported yet (ROADMAP.md).
 
 Reference defects kept as the JAX package keeps them: the eval support loop
-overwrites across supports, so only the LAST sampled support volume is used.
+overwrites across supports, so only the LAST sampled support volume is used
+(unless ``use_all_supports``).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import csv
 import dataclasses
 import os
 import random
+import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -64,6 +70,22 @@ class Episode:
     @property
     def n_slices(self) -> int:
         return self.query_images.shape[0]
+
+
+@dataclasses.dataclass
+class EpisodeSpec:
+    """An eval episode as volume keys and slice indices (the JAX package's
+    ``EpisodeSpec``): eval assembly is pure indexing (support slices repeat
+    per query bin, the query volume feeds through whole), so the runner
+    gathers the rows on the device from volumes it uploaded once.
+    """
+    supp_key: Tuple[str, str]       # (pid, roi) of the last support volume
+    qry_key: Tuple[str, str]
+    supp_rows: np.ndarray           # (test_shot, Dq) int32 rows into support
+    n_slices: int                   # Dq; query rows are 0..Dq-1
+    class_id: int
+    pid: str
+    supp_pids: List[Tuple[int, int]]
 
 
 def slice_bins(num_support_slices: Sequence[int], num_query_slices: int, k: int):
@@ -113,6 +135,7 @@ class EpisodeSampler:
         # Entries are returned read-only. ``volume_cache: 0`` disables.
         self._vol_cache: "OrderedDict[Tuple[str, str], Tuple[np.ndarray, np.ndarray]]" = OrderedDict()
         self._vol_cache_max = int(config.get("volume_cache", 8))
+        self._vol_lock = threading.Lock()   # prefetch threads share the LRU
 
     def _read_data_meta(self):
         self.data_info: List[List[Dict]] = []
@@ -133,10 +156,11 @@ class EpisodeSampler:
     def load_image_and_mask(self, pid: str, roi: str):
         """The per-volume preprocessing chain (few_shot_reader.py:324-345)."""
         key = (pid, roi)
-        hit = self._vol_cache.get(key)
-        if hit is not None:
-            self._vol_cache.move_to_end(key)
-            return hit
+        with self._vol_lock:
+            hit = self._vol_cache.get(key)
+            if hit is not None:
+                self._vol_cache.move_to_end(key)
+                return hit
         cfg = self.cfg
         pad_factor = 16
         mask, _ = nrrd_io.read(os.path.join(self.data_dir, f"{pid}_{roi}.nrrd"))
@@ -157,9 +181,10 @@ class EpisodeSampler:
         if self._vol_cache_max > 0:
             imgs.flags.writeable = False   # cache entries are shared views
             mask.flags.writeable = False
-            self._vol_cache[key] = (imgs, mask)
-            if len(self._vol_cache) > self._vol_cache_max:
-                self._vol_cache.popitem(last=False)
+            with self._vol_lock:
+                self._vol_cache[key] = (imgs, mask)
+                if len(self._vol_cache) > self._vol_cache_max:
+                    self._vol_cache.popitem(last=False)
         return imgs, mask
 
     def draw_supports(self, idx: int) -> List[int]:
@@ -185,32 +210,55 @@ class EpisodeSampler:
         return dataclasses.replace(ep, class_id=ci, pid=pid,
                                    supp_pids=[(ci, i) for i in picks])
 
+    def sample_spec(self, idx: int,
+                    picks: Optional[List[int]] = None) -> Optional[EpisodeSpec]:
+        """The index-only twin of :meth:`sample` for the reference eval
+        semantics (eval mode, last support wins). ``None`` where the episode
+        needs host assembly: train mode, ``use_all_supports``,
+        ``multishot_fusion``, or support and query crops of different
+        shapes; callers then use :meth:`sample`. Draws from the same
+        support stream as :meth:`sample`."""
+        cfg = self.cfg
+        if (self.mode != "eval" or cfg.get("use_all_supports")
+                or cfg.get("multishot_fusion")):
+            return None
+        ci, di = self.indices[idx]
+        pid = self.data_info[ci][di]["pid"]
+        if picks is None:
+            picks = self.draw_supports(idx)
+        roi = self.classes[ci]
+        supp_pid = self.data_info[ci][picks[-1]]["pid"]   # last support wins
+        s_img, _ = self.load_image_and_mask(supp_pid, roi)
+        q_img, _ = self.load_image_and_mask(pid, roi)
+        if s_img.shape[1:] != q_img.shape[1:]:
+            return None
+        nq = q_img.shape[0]
+        test_shot = cfg.get("test_shot", cfg["n_shot"])
+        return EpisodeSpec((supp_pid, roi), (pid, roi),
+                           _shot_rows(s_img.shape[0], nq, cfg["k"], test_shot),
+                           nq, ci, pid, [(ci, i) for i in picks])
+
     def _assemble_eval(self, supports, qry_img, qry_mask) -> Episode:
         cfg = self.cfg
-        if cfg.get("use_all_supports", False):
-            raise NotImplementedError("use_all_supports is not ported yet")
-        test_shot = cfg.get("test_shot", cfg["n_shot"])
-        # reference defect replicated: only the last support volume survives
-        # the loop (few_shot_reader.py:521-545)
-        s_img, s_lab = supports[-1]
-
         nq = qry_img.shape[0]
-        k, supp_idx, edges = slice_bins([s_img.shape[0]], nq, cfg["k"])
-
-        # slice-offset "shots" from the last support
-        shot_imgs, shot_labs = [], []
-        for m in range(test_shot):
-            img_rows, lab_rows = [], []
-            for j in range(k):
-                s, e = int(edges[j]), int(edges[j + 1])
-                offset = 0 if j + m >= k else m
-                si = int(supp_idx[0][j + offset])
-                img_rows.append(np.repeat(s_img[si][None], e - s, axis=0))
-                lab_rows.append(np.repeat(s_lab[si][None], e - s, axis=0))
-            shot_imgs.append(np.concatenate(img_rows, axis=0))
-            shot_labs.append(np.concatenate(lab_rows, axis=0))
-        support_images = np.stack(shot_imgs)       # (shots, Dq, H, W)
-        support_labels = np.stack(shot_labs)
+        if cfg.get("use_all_supports", False):
+            # one shot per support volume, each matched to the query bins
+            k, supp_idx, edges = slice_bins([s[0].shape[0] for s in supports], nq,
+                                            cfg["k"])
+            bins = np.repeat(np.arange(k), np.diff(edges))
+            support_images = np.stack([img[supp_idx[i][bins]]
+                                       for i, (img, _) in enumerate(supports)])
+            support_labels = np.stack([lab[supp_idx[i][bins]]
+                                       for i, (_, lab) in enumerate(supports)])
+        else:
+            # reference defect replicated: only the last support volume
+            # survives the loop (few_shot_reader.py:521-545); its slice-offset
+            # "shots"
+            s_img, s_lab = supports[-1]
+            rows = _shot_rows(s_img.shape[0], nq, cfg["k"],
+                              cfg.get("test_shot", cfg["n_shot"]))
+            support_images = s_img[rows]               # (shots, Dq, H, W)
+            support_labels = s_lab[rows]
 
         support_images, support_labels, qry_img, qry_mask = _pad_same_hw(
             support_images, support_labels, qry_img, qry_mask)
@@ -256,6 +304,20 @@ class EpisodeSampler:
         return Episode(s_img.astype(np.float32), s_lab.astype(np.float32),
                        q_imgs.astype(np.float32), q_labs.astype(np.float32),
                        -1, "", [])
+
+
+def _shot_rows(n_support: int, nq: int, k: int, test_shot: int) -> np.ndarray:
+    """(test_shot, nq) int32 support rows of the eval episode: shot m takes
+    bin j's support slice from bin j + m (bin j itself where j + m runs past
+    the last bin), repeated over the query slices of bin j
+    (few_shot_reader.py:516-545)."""
+    k, supp_idx, edges = slice_bins([n_support], nq, k)
+    rows = np.zeros((test_shot, nq), np.int32)
+    for m in range(test_shot):
+        for j in range(k):
+            offset = 0 if j + m >= k else m
+            rows[m, edges[j]:edges[j + 1]] = supp_idx[0][j + offset]
+    return rows
 
 
 def _pad_same_hw(s_img, s_lab, q_img, q_lab):

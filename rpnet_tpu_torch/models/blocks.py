@@ -15,7 +15,8 @@ axis), the running variance takes the biased batch variance, and the new
 running statistics are the mean over episodes of the per-episode updates.
 
 Initialization: torch's own defaults (Conv2d kaiming_uniform(a=√5), bias
-U(±1/√fan_in); BatchNorm2d ones/zeros, running stats 0/1), the same
+U(±1/√fan_in); BatchNorm2d ones/zeros, running stats 0/1), or kaiming-normal
+weights where a conv asks for them (the VGG encoder's), the same
 distributions as the JAX package's, drawn from an explicit
 ``torch.Generator`` by :func:`init_`.
 """
@@ -139,7 +140,12 @@ def init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     ``generator`` (reset_parameters draws from the global RNG)."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
-            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
+            if getattr(m, "kaiming_normal", False):   # the VGG encoder's
+                nn.init.kaiming_normal_(m.weight, nonlinearity="relu",
+                                        generator=generator)
+            else:
+                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                         generator=generator)
             if m.bias is not None:
                 fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
                 bound = 1.0 / math.sqrt(fan_in)

@@ -16,6 +16,11 @@ The backward of ``torch.cat([corr, fm1])`` hands the correlation's backward
 its gradient as a strided (B, h, w, d²) view of the (B, h, w, d² + C)
 gradient; the backward kernel reads it with that pixel stride, no copy.
 
+:class:`SimpleConcat` is the ``use_relation_enc: concat`` mode
+(``rpnet_tpu/models/cre.py:142-150``; upstream names it, net/rp_net.py:224,
+but never defines it): the features and the mask concatenated, then one
+1×1 conv + BN + ReLU down to 64. No correlation.
+
 The correlation's forward is resolved per call, from the JAX package's
 ``RPNET_CORR_IMPL`` / ``RPNET_ROT_EXTRACT`` / ``RPNET_ROT_PACK`` and the
 module's mode (``self.training`` where the JAX CRE takes ``train``), by
@@ -64,3 +69,15 @@ class ContextCorrelationEncoder(nn.Module):
         a = F.conv2d(corr.permute(0, 3, 1, 2), w[:, :d2]).permute(0, 2, 3, 1)
         b = F.conv2d(fm1.permute(0, 3, 1, 2), w[:, d2:]).permute(0, 2, 3, 1)
         return a + (b + conv.bias.to(fm1.dtype))
+
+
+class SimpleConcat(nn.Module):
+    """concat(features (B, h, w, C), mask (B, h, w, 1)) → 1×1 conv + BN +
+    ReLU → (B, h, w, 64)."""
+
+    def __init__(self, channels: int = 256):
+        super().__init__()
+        self.proj = nn.Sequential(*conv_bn_relu(channels + 1, NUM_FEAT, k=1))
+
+    def forward(self, fts, mask):
+        return self.proj(torch.cat([fts, mask], dim=-1))

@@ -15,6 +15,13 @@ Kept from the JAX package (same values as upstream):
     the mask instead of upsampling the features; its spatial sums run in f32
     and are cast back to the network dtype after the reductions.
 
+The backbone is the U-Net (optionally with mask injection), VGG16 or a
+ResNet18-style encoder; VGG and ResNet take the single-channel image
+broadcast to 3 channels. In the merged eval pass the encoder gets each
+support's foreground mask and, for the query, support (0, 0)'s mask, as the
+JAX package passes ``fore_mask[0, 0]`` (its rpnet.py:190-196). The relation
+mode is the CRE (``relation``) or :class:`SimpleConcat` (``concat``).
+
 The refinement loop is a Python loop. Tensors are channels-last as in the
 JAX package.
 
@@ -35,9 +42,11 @@ import torch
 from torch import nn
 
 from rpnet_tpu_torch.models.blocks import set_episode_groups
-from rpnet_tpu_torch.models.cre import ContextCorrelationEncoder
+from rpnet_tpu_torch.models.cre import ContextCorrelationEncoder, SimpleConcat
 from rpnet_tpu_torch.models.losses import one_hot
+from rpnet_tpu_torch.models.resnet import ResNet18Encoder
 from rpnet_tpu_torch.models.unet import UNet
+from rpnet_tpu_torch.models.vgg import VGGEncoder
 from rpnet_tpu_torch.ops.sampling import (avg_pool2d, interpolate_bilinear,
                                           resize_transpose)
 
@@ -95,16 +104,42 @@ class RPNet(nn.Module):
     """
 
     def __init__(self, scale: int = 4, num_iter: int = 10, radius: int = 5,
-                 soft_mask: bool = False, align: bool = True):
+                 soft_mask: bool = False, align: bool = True, backbone: str = "UNet",
+                 mask_feature_map="no", use_relation_enc: str = "relation"):
         super().__init__()
         self.scale = scale
         self.num_iter = num_iter
         self.soft_mask = soft_mask
         self.align = align
-        self.encoder = UNet()
-        self.cre = ContextCorrelationEncoder(256, radius)
+        self.backbone = backbone
+        self.use_relation_enc = use_relation_enc
+        if backbone == "UNet":
+            self.encoder = UNet(mask_feature_map=mask_feature_map)
+        elif backbone == "vgg":
+            self.encoder = VGGEncoder()
+        elif backbone == "resnet":
+            self.encoder = ResNet18Encoder()
+        else:
+            raise NotImplementedError(f"backbone {backbone!r}: vgg, UNet or resnet")
+        C = self.encoder.out_channels
+        if use_relation_enc == "relation":
+            self.cre = ContextCorrelationEncoder(C, radius)
+        elif use_relation_enc == "concat":
+            self.sim_cat = SimpleConcat(C)
+        else:
+            raise NotImplementedError(f"use_relation_enc {use_relation_enc!r}: "
+                                      "relation or concat")
+
+    def _encode(self, imgs, masks):
+        """imgs (N, H, W, 1), masks (N, H, W) or None when the encoder takes
+        no mask → features (N, h, w, C)."""
+        if self.backbone != "UNet":
+            return self.encoder(imgs.expand(-1, -1, -1, 3).contiguous())
+        return self.encoder(imgs, None if masks is None else masks[..., None])
 
     def _relate(self, fts, mask_ds):
+        if self.use_relation_enc == "concat":
+            return self.sim_cat(fts, mask_ds)
         return self.cre(fts * mask_ds, fts * (1.0 - mask_ds))
 
     def _predict(self, qry_fts, fg_proto, bg_proto, img_size):
@@ -120,7 +155,10 @@ class RPNet(nn.Module):
         Wa, Sh, B, H, W = fore_mask.shape
         imgs = torch.cat([supp_imgs.reshape(Wa * Sh * B, H, W, 1),
                           qry_imgs.reshape(B, H, W, 1)])
-        fts = self.encoder(imgs)                       # ((Wa*Sh+1)*B, h, w, C)
+        masks = None
+        if getattr(self.encoder, "mask_level", 0):
+            masks = torch.cat([fore_mask.reshape(Wa * Sh * B, H, W), fore_mask[0, 0]])
+        fts = self._encode(imgs, masks)                # ((Wa*Sh+1)*B, h, w, C)
         supp_fts_raw = fts[:-B].reshape((Wa, Sh, B) + fts.shape[1:])
         qry_fts = fts[-B:]
 
@@ -157,8 +195,10 @@ class RPNet(nn.Module):
         E, Wa, Sh, B, H, W = fore_mask.shape
         set_episode_groups(self, E)
         # two encoder passes, episode-major (rp_net.py:245-262)
-        supp_fts_raw = self.encoder(supp_imgs.reshape(E * Wa * Sh * B, H, W, 1))
-        qry_fts = self.encoder(qry_imgs.reshape(E * B, H, W, 1))
+        supp_fts_raw = self._encode(supp_imgs.reshape(E * Wa * Sh * B, H, W, 1),
+                                    fore_mask.reshape(E * Wa * Sh * B, H, W))
+        qry_fts = self._encode(qry_imgs.reshape(E * B, H, W, 1),
+                               fore_mask[:, 0, 0].reshape(E * B, H, W))
         h, w, C = qry_fts.shape[1:]
         supp_fts_raw = supp_fts_raw.reshape(E, Wa, Sh, B, h, w, C)
 

@@ -80,6 +80,15 @@ def _resize_weights(src: int, dst: int, align_corners: bool) -> np.ndarray:
     return out.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(src: int, dst: int, align_corners: bool, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_resize_weights` as a tensor on ``device``, made once: a fresh
+    copy from host memory on each call would block the host until the
+    device is idle."""
+    return torch.from_numpy(_resize_weights(src, dst, align_corners)).to(device, dtype)
+
+
 def interpolate_bilinear(x, size: Tuple[int, int], align_corners: bool = False):
     """``F.interpolate(x, size, mode='bilinear')`` on (N, H, W, C) input.
 
@@ -92,8 +101,8 @@ def interpolate_bilinear(x, size: Tuple[int, int], align_corners: bool = False):
         return _nhwc(F.interpolate(_nchw(x), size=tuple(size), mode="bilinear",
                                    align_corners=align_corners))
     _, H, W, _ = x.shape
-    Ay = torch.from_numpy(_resize_weights(H, size[0], align_corners)).to(x)
-    Ax = torch.from_numpy(_resize_weights(W, size[1], align_corners)).to(x)
+    Ay = _resize_matrix(H, size[0], align_corners, x.device, x.dtype)
+    Ax = _resize_matrix(W, size[1], align_corners, x.device, x.dtype)
     out = torch.einsum("oh,nhwc->nowc", Ay, x)
     return torch.einsum("ow,nhwc->nhoc", Ax, out)
 
@@ -106,8 +115,8 @@ def resize_transpose(cot, src_size: Tuple[int, int], align_corners: bool = False
     """
     _, Ho, Wo, _ = cot.shape
     H, W = src_size
-    Ay = torch.from_numpy(_resize_weights(H, Ho, align_corners)).to(cot)
-    Ax = torch.from_numpy(_resize_weights(W, Wo, align_corners)).to(cot)
+    Ay = _resize_matrix(H, Ho, align_corners, cot.device, cot.dtype)
+    Ax = _resize_matrix(W, Wo, align_corners, cot.device, cot.dtype)
     out = torch.einsum("oh,nowc->nhwc", Ay, cot)
     return torch.einsum("ow,nhoc->nhwc", Ax, out)
 
@@ -117,9 +126,21 @@ def avg_pool2d(x, kernel: int, stride: int | None = None):
     return _nhwc(F.avg_pool2d(_nchw(x), kernel, stride or kernel))
 
 
-def max_pool2d(x, kernel: int, stride: int | None = None):
-    """``F.max_pool2d`` (no padding) on (N, H, W, C) input."""
-    return _nhwc(F.max_pool2d(_nchw(x), kernel, stride or kernel))
+def max_pool2d(x, kernel: int, stride: int | None = None, padding: int = 0):
+    """``F.max_pool2d`` on (N, H, W, C) input; ``padding`` pads with -inf,
+    as ``rpnet_tpu/ops/sampling.py:max_pool2d`` does."""
+    return _nhwc(F.max_pool2d(_nchw(x), kernel, stride or kernel, padding))
+
+
+class MaxPool2d(torch.nn.Module):
+    """:func:`max_pool2d` as a module (a stage of a ``Sequential``)."""
+
+    def __init__(self, kernel: int, stride: int, padding: int = 0):
+        super().__init__()
+        self.kernel, self.stride, self.padding = kernel, stride, padding
+
+    def forward(self, x):
+        return max_pool2d(x, self.kernel, self.stride, self.padding)
 
 
 def upsample_nearest2x(x):

@@ -35,8 +35,9 @@ def fit_affine(moving, fixed, iters: int = 50, lr: float = 0.01):
     The update is written out in optax's form, as the JAX package runs it.
     """
     S = moving.shape[0]
-    theta = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=moving.dtype,
-                         device=moving.device).repeat(S, 1, 1)
+    # the identity, made on the device (a tensor from host data would be a
+    # copy that blocks the host until the device is idle)
+    theta = torch.eye(2, 3, dtype=moving.dtype, device=moving.device).repeat(S, 1, 1)
     mu = torch.zeros_like(theta)
     nu = torch.zeros_like(theta)
     losses = []

@@ -80,7 +80,16 @@ def fast_forward_optimizer(optimizer: torch.optim.Optimizer, n_updates: int) -> 
                 }
 
 
-def _check_ported(config) -> None:
+def check_ported(config) -> None:
+    mfm = config.get("mask_feature_map", "no")
+    for key, val, ok in (("backbone", config.get("backbone", "UNet"), "UNet"),
+                         ("mask_feature_map", "no" if mfm is False else mfm, "no"),
+                         ("use_relation_enc", config.get("use_relation_enc", "relation"),
+                          "relation")):
+        if val != ok:
+            raise NotImplementedError(
+                f"{key}: {val!r} training is not ported to rpnet_tpu_torch yet "
+                f"(eval only; training takes {ok!r}; ROADMAP.md queue 1 item 3)")
     if int(config.get("n_way", 1)) > 1:
         raise NotImplementedError("n_way > 1 training is not ported to "
                                   "rpnet_tpu_torch yet (ROADMAP.md)")
@@ -100,7 +109,7 @@ def make_train_step(model, config, optimizer) -> Callable:
     and qry_img, qry_lab (E, k, H, W); labels may be uint8. Metrics are
     0-d tensors: loss, seg_loss and align_loss, each the mean over episodes.
     """
-    _check_ported(config)
+    check_ported(config)
     affine_iters = int(config.get("reg_affine_iters", 50))
     fit_scale = int(config.get("reg_fit_scale", 1))
     reg_lr = float(config.get("reg_lr", 0.01))

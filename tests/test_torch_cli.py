@@ -4,7 +4,10 @@ The JAX CLI (``reg_sampler: gather``, its torch-exact fit) and the port's CLI
 (``--platform cpu``) run the same YAML with ``compute_dtype: float32``:
 the same seed draws the same supports, so the per-episode log lines agree
 in everything but the last digits, and the per-class affine, fewshot and
-per-iteration Dice of ``results_eval.json`` agree within 1e-3.
+per-iteration Dice of ``results_eval.json`` agree within 1e-3. Both on the
+host data path (``device_volume_cache: 0``, ``num_workers: 0``) and on the
+defaults (a device volume cache of 16 and index-only episodes; 4 prefetch
+workers, unused while the cache is on).
 """
 
 import json
@@ -40,8 +43,7 @@ def _config(paths, out_dir, ckpt, **kw):
         use_registration_loss=True, use_registration_mask=True,
         do_deformable=False, reg_affine_iters=8,
         slice_bucket=8, max_slices=32, do_intaug=False, do_elastic=False,
-        n_runs=1, out_dir=out_dir, ckpt=ckpt, compute_dtype="float32",
-        num_workers=0)
+        n_runs=1, out_dir=out_dir, ckpt=ckpt, compute_dtype="float32")
     cfg.update(kw)
     return cfg
 
@@ -54,7 +56,9 @@ def _episode_lines(path):
     return [_FLOAT.sub("#", l) for l in keep]
 
 
-def test_cli_parity(tmp_path):
+@pytest.mark.parametrize("data_path", [dict(device_volume_cache=0, num_workers=0), {}],
+                         ids=["num_workers=0", "defaults"])
+def test_cli_parity(tmp_path, data_path):
     paths = generate_dataset(str(tmp_path / "data"), n_train=3, n_test=3,
                              shape=(20, 48, 48), seed=0)
     _, variables = jax_rpnet(radius=2, num_iter=2, size=32, seed=3)
@@ -68,7 +72,7 @@ def test_cli_parity(tmp_path):
         out = str(tmp_path / name)
         ypath = str(tmp_path / f"{name}.yml")
         with open(ypath, "w") as f:
-            yaml.safe_dump(_config(paths, out, ckpt, **kw), f)
+            yaml.safe_dump(_config(paths, out, ckpt, **kw, **data_path), f)
         stdout = sys.stdout
         try:
             results[name] = cli.main(["--yaml", ypath] + extra)
