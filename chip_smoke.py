@@ -50,6 +50,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
      the launch counts set to 0 just before and read just after: no line
      FAILED or missed its tolerance, and each kernel launched as often as
      its lines call it;
+  2d. grid_sample — CUDA ``F.grid_sample`` (bilinear, zeros,
+     align_corners=False, f32) against a plain torch evaluation of the JAX
+     gather formula ((x+1)·S − 1)/2 on the card, at every pair of
+     knife-edge coordinates (exact integer and half-integer indices and
+     1 ulp either side) for S = 64 and 48: values within 1e-5, the input's
+     gradient within 1e-4, the grid's within 1e-6 of its scale everywhere;
+     then the affine fit (50 steps, fit_scale 1) on a sharp input (binary
+     squares plus noise) on the card and on the CPU, theta's difference
+     logged;
   3. main path — the port's eval CLI (``rpnet_tpu_torch.cli.test_rpnet``)
      on a synthetic Abd-110-shaped dataset at 272² volumes / 256² crops,
      configured by yamls/example.yml (U-Net d4, r=5, 10 refinement
@@ -77,6 +86,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
      concat`` and ``use_all_supports`` + ``multishot_fusion`` with 2 shots
      and ``n_way: 2``: Wa·Sh + 10 launches an episode (none under concat),
      no failed episode, every Dice finite;
+  3r. registration reference — ``register_episode`` with 50 demons steps
+     on the first episode's first 4 query slices at 256², matmul structure
+     (fit_scale 4) and gather structure, on the card and on the CPU:
+     warped labels agreeing on > 99.9% of pixels, the warped image within
+     0.1 (5e-4 on average), the raw flow within half its largest value; the
+     affine-only and demons priors' Dice logged; ``deeds_fit`` (128² grid,
+     15² shifts) card vs CPU within 1e-4;
+  3e. deformable eval — phase 3's CLI, episodes and weights with
+     ``do_deformable: True`` for 2 passes, under ``reg_sampler: matmul``
+     and ``gather``: 11 launches an episode, no failed episode, every Dice
+     finite; each episode's demons prior Dice beside phase 3's affine-only
+     one and the warm pass's episodes/s logged; under matmul one warm spec
+     dispatch under the sync debug mode (no synchronizing call) and one
+     warm episode profiled (device operations);
+  3f. eval_3d — the eval CLI with ``yamls/example_3d.yml``'s settings on 2
+     synthetic Liver volumes of 80×272×272 (2 windows each): 11 launches a
+     window, no failed volume, finite Dice, predictions of the volume's
+     shape;
   4. reference — the full-width model (random seeded weights, 3 refinement
      iterations) on a small input, f32 with TF32 off, on the card vs on the
      CPU (plain versions), for the U-Net, VGG and ResNet backbones: logits
@@ -94,6 +121,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      pallas_mxu, csub and rot + RPNET_ROT_PACK=1: 5 launches of the selected
      forward and 5 of the backward per step, the first loss within 1e-3
      relative of phase 5's;
+  5c. deformable training — 2 steps of the train CLI with
+     ``do_deformable: True`` (50 demons steps, matmul structure): 5 forward
+     and 5 backward launches a step, finite losses, parameters moved;
   6. training reference — one full-width train step (E=2, k=2, 64², SGD at
      lr 1 so the change is the gradient) on the card vs on the CPU, f32 with
      TF32 off: loss within 1e-4 relative, each parameter tensor's change
@@ -112,6 +142,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -785,7 +816,7 @@ def run_eval_cli(yaml_path, env=None, hook=True):
 
 
 def phase_main_path(yaml_path):
-    results, launches, outputs, _ = run_eval_cli(yaml_path)
+    results, launches, outputs, episodes = run_eval_cli(yaml_path)
     n_eps = results["episodes"]
     if n_eps < 3:
         raise AssertionError(f"only {n_eps} episodes ran")
@@ -798,7 +829,7 @@ def phase_main_path(yaml_path):
     log(f"[main] {n_eps} episodes, {results['episodes_per_sec']:.3f} episodes/s "
         f"(first pass, includes warm-up; CLI wall {results['wall']:.1f}s), "
         f"launches {launches}")
-    return results, launches, outputs
+    return results, launches, outputs, episodes
 
 
 def phase_eval_switches(yaml_path, dq, default_outputs):
@@ -914,9 +945,11 @@ def phase_data_paths(cfg):
     return launches_all
 
 
-def check_dispatch_does_not_block(cfg):
-    """One warm episode queued on the spec and on the host path under the
-    sync debug mode, then one warm spec episode profiled."""
+def check_dispatch_does_not_block(cfg, tag: str = "data", host: bool = True):
+    """One warm episode queued on the spec and (with ``host``) on the host
+    path under the sync debug mode, then one warm spec episode profiled;
+    logged under ``[tag-sync]`` and ``[tag-profile]``. Returns the profile's
+    device operations."""
     import warnings
 
     import torch
@@ -953,10 +986,12 @@ def check_dispatch_does_not_block(cfg):
     _, control, _ = synchronizing_calls(lambda: torch.ones(1, device="cuda").item())
     if not control:
         raise AssertionError("the sync debug mode did not see .item()")
-    log(f"[data-sync] control: .item() under the sync debug mode seen as {len(control)} "
+    log(f"[{tag}-sync] control: .item() under the sync debug mode seen as {len(control)} "
         "synchronizing call(s)")
-    for label, queue in (("spec", lambda: runner.dispatch_spec(spec, sampler)),
-                         ("host", lambda: runner.dispatch(ep))):
+    queues = [("spec", lambda: runner.dispatch_spec(spec, sampler))]
+    if host:
+        queues.append(("host", lambda: runner.dispatch(ep)))
+    for label, queue in queues:
         runner.finalize(queue())   # warm: first-use builds and allocations
         torch.cuda.synchronize()
         d, syncs, host_ms = synchronizing_calls(queue)
@@ -964,7 +999,7 @@ def check_dispatch_does_not_block(cfg):
         t1 = time.perf_counter()
         runner.finalize(d)
         wait_ms = (time.perf_counter() - t1) * 1e3
-        log(f"[data-sync] {label} dispatch: {host_ms:.1f} ms on the host, episode still "
+        log(f"[{tag}-sync] {label} dispatch: {host_ms:.1f} ms on the host, episode still "
             f"running when it returned: {running}, then {wait_ms:.1f} ms to its result; "
             f"synchronizing calls in the dispatch: {len(syncs)}")
         if syncs:
@@ -977,8 +1012,8 @@ def check_dispatch_does_not_block(cfg):
         t0 = time.perf_counter()   # (after the profiler's own start)
         runner.finalize(runner.dispatch_spec(spec, sampler))
         wall_ms = (time.perf_counter() - t0) * 1e3
-    log_device_profile("data-profile", "one warm spec episode (dispatch + settle)", prof,
-                       wall_ms)
+    return log_device_profile(f"{tag}-profile", "one warm spec episode (dispatch + settle)",
+                              prof, wall_ms)
 
 
 def phase_breadth(cfg, paths):
@@ -1181,11 +1216,13 @@ def log_device_profile(tag: str, what: str, prof, wall_ms: float):
         groups[g] += dev_ms(e)
     total = sum(groups.values())
     top = sorted(events, key=dev_ms, reverse=True)[:10]
+    n_ops = sum(e.count for e in events)
     log(f"[{tag}] {what}: wall {wall_ms:.2f} ms, device time {total:.2f} ms (busy share "
-        f"{total / wall_ms:.3f}) in {sum(e.count for e in events)} device operations; "
+        f"{total / wall_ms:.3f}) in {n_ops} device operations; "
         "by group " + json.dumps({k: round(v, 3) for k, v in groups.items()}))
     for e in top:
         log(f"[{tag}]   {dev_ms(e):9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+    return n_ops
 
 
 def phase_train_reference():
@@ -1299,6 +1336,350 @@ def measure_bf16_rounding():
         log(f"[bf16-rounding] {list(shape)}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
 
 
+# ---------------------------------------------------------------------------
+# grid_sample on the card (phase 2d), the registration stage (phase 3r) and
+# the deformable / whole-volume paths (phases 3e, 3f, 5c)
+# ---------------------------------------------------------------------------
+
+
+def grid_sample_jax_formula(x, grid):
+    """The JAX package's gather formula (rpnet_tpu/ops/sampling.py:38-77:
+    bilinear, zero padding, align_corners=False, unnormalized as
+    ((x + 1)·S − 1)/2) in plain torch ops: x (N, C, H, W), grid (N, Hg, Wg,
+    2) → (N, C, Hg, Wg). Differentiable in x and grid as the JAX one is."""
+    import torch
+
+    N, C, H, W = x.shape
+    ix = ((grid[..., 0] + 1.0) * W - 1.0) * 0.5
+    iy = ((grid[..., 1] + 1.0) * H - 1.0) * 0.5
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    wx1, wy1 = ix - x0, iy - y0
+    flat = x.reshape(N, C, H * W)
+    out = 0
+    for yy, wy in ((y0, 1.0 - wy1), (y0 + 1.0, wy1)):
+        for xx, wx in ((x0, 1.0 - wx1), (x0 + 1.0, wx1)):
+            valid = ((xx >= 0) & (xx <= W - 1) & (yy >= 0) & (yy <= H - 1)).to(x.dtype)
+            idx = (yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)).long().reshape(N, 1, -1)
+            vals = torch.gather(flat, 2, idx.expand(N, C, -1))
+            out = out + vals * (wy * wx * valid).reshape(N, 1, -1)
+    return out.reshape(N, C, grid.shape[1], grid.shape[2])
+
+
+def knife_edge_coords(size: int):
+    """Normalized coordinates whose unnormalized index is an exact integer
+    or half-integer (from −1 to size), and the f32 neighbours 1 ulp either
+    side of each."""
+    import torch
+
+    i = torch.arange(-1, size + 1, dtype=torch.float64)
+    base = torch.cat([(2 * i + 1) / size - 1, (2 * i + 2) / size - 1]).float()
+    return torch.cat([base, torch.nextafter(base, base + 1), torch.nextafter(base, base - 1)])
+
+
+def check_grid_sample():
+    """Phase 2d: ``F.grid_sample`` (bilinear, zeros, align_corners=False,
+    f32) on the card against :func:`grid_sample_jax_formula` on the card, at
+    every pair of knife-edge coordinates for S = 64 (exact in f32) and
+    S = 48 (not): values within 1e-5, the input's gradient within 1e-4
+    (summed in another order, atomics), the grid's gradient within 1e-6 of
+    its largest entry at every point (at an exact-integer index the
+    derivative is one-sided: an index one rounding away would take the
+    other side, and no point may). The CPU's ``F.grid_sample`` against the
+    formula on the CPU is logged beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    out = {}
+    for size in (64, 48):
+        c = knife_edge_coords(size)
+        gy, gx = torch.meshgrid(c, c, indexing="ij")
+        grid = torch.stack([gx, gy], -1)[None]                  # (1, n, n, 2)
+        gen = torch.Generator().manual_seed(size)
+        x = torch.rand((1, 2, size, size), generator=gen)
+        g = torch.randn((1, 2) + grid.shape[1:3], generator=gen)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            per = []
+            for fn in (lambda a, b: F.grid_sample(a, b, mode="bilinear", padding_mode="zeros",
+                                                  align_corners=False),
+                       grid_sample_jax_formula):
+                a = x.to(dev).clone().requires_grad_(True)
+                b = grid.to(dev).clone().requires_grad_(True)
+                y = fn(a, b)
+                y.backward(g.to(dev))
+                per.append((y.detach().cpu(), a.grad.cpu(), b.grad.cpu()))
+            (y0, dx0, dg0), (y1, dx1, dg1) = per
+            flips = ((dg0 - dg1).abs() > 1e-3 * dg1.abs().max()).any(-1)
+            res[dev] = {"values": float((y0 - y1).abs().max()),
+                        "input_grad": float((dx0 - dx1).abs().max()),
+                        "grid_grad": float((dg0 - dg1).abs().max()),
+                        "grid_grad_scale": float(dg1.abs().max()),
+                        "grid_grad_points_apart": int(flips.sum()),
+                        "points": int(flips.numel())}
+        log(f"[grid_sample] S={size}, {res['cuda']['points']} knife-edge points: card "
+            f"{json.dumps(res['cuda'])}; CPU {json.dumps(res['cpu'])}")
+        r = res["cuda"]
+        if not (r["values"] <= 1e-5 and r["input_grad"] <= 1e-4
+                and r["grid_grad"] <= 1e-6 * r["grid_grad_scale"]
+                and r["grid_grad_points_apart"] == 0):
+            raise AssertionError(f"F.grid_sample on the card disagrees with the JAX formula: {r}")
+        out[size] = res
+    return out
+
+
+def check_affine_sharp():
+    """Phase 2d, second part: the affine fit (50 Adam steps, fit_scale 1) on
+    a sharp input, 4 slices at 256² of a binary square plus noise shifted
+    by a few pixels, on the card and on the CPU: theta's largest difference
+    (a measurement: the fit's trajectory is discontinuous at knife-edge
+    coordinates)."""
+    import numpy as np
+    import torch
+
+    from rpnet_tpu_torch.registration.affine import fit_affine
+
+    rng = np.random.RandomState(21)
+    H = 256
+    yy, xx = np.mgrid[:H, :H]
+    sq = lambda dy, dx: ((abs(yy - 128 - dy) < 48) & (abs(xx - 128 - dx) < 40)).astype(np.float32)
+    mov = np.stack([sq(0, 0) + 0.05 * rng.randn(H, H) for _ in range(4)]).astype(np.float32)
+    fix = np.stack([sq(3 + i, -4 + i) + 0.05 * rng.randn(H, H) for i in range(4)]).astype(np.float32)
+    theta = {dev: fit_affine(torch.from_numpy(mov[..., None]).to(dev),
+                             torch.from_numpy(fix[..., None]).to(dev), iters=50)[0].cpu()
+             for dev in ("cpu", "cuda")}
+    diff = float((theta["cuda"] - theta["cpu"]).abs().max())
+    moved = float((theta["cpu"] - torch.eye(2, 3)).abs().max())
+    log(f"[affine-sharp] 50 affine steps, fit_scale 1, 4 x 256² binary squares + noise: "
+        f"theta card vs CPU max |diff| {diff:.3e} (theta moved {moved:.3e} from the identity)")
+    return diff
+
+
+def episode_slices(cfg, n: int = 4):
+    """The first eval episode's first ``n`` query slices, shot 0's supports
+    and the query labels (host sampling)."""
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.episode.sampler import EpisodeSampler
+
+    config = Config(cfg)
+    s = EpisodeSampler(config["data_dir"], config["eval_set_name"], config)
+    random.seed(int(config.get("seed", 0)))   # the support the CLI's first pass draws
+    ep = s.sample(0, picks=s.draw_supports(0))
+    return (ep.support_images[0, :n], ep.support_labels[0, :n], ep.query_images[:n],
+            ep.query_labels[:n])
+
+
+def phase_registration_reference(cfg):
+    """Phase 3r: ``register_episode`` with 50 demons steps on the first
+    episode's first 4 query slices at 256², in the matmul structure (the
+    example's, fit_scale 4) and the gather structure (fit at full
+    resolution, fit_scale 4 for the affine), on the card and on the CPU:
+    warped labels agreeing on > REG_LABEL_AGREE of pixels, the warped image
+    within REG_SRC_ATOL (REG_SRC_MEAN_ATOL on average), the raw flow within
+    REG_FLOW_RTOL of its own largest value; the prior's Dice against the query labels logged, affine
+    only and with the demons."""
+    import numpy as np
+    import torch
+
+    from rpnet_tpu_torch.core.metrics import dice
+    from rpnet_tpu_torch.registration.fit import register_episode
+
+    s_img, s_lab, q_img, q_lab = (torch.from_numpy(np.ascontiguousarray(a))
+                                  for a in episode_slices(cfg))
+    out = {}
+    for sampler in ("matmul", "gather"):
+        res, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.time()
+            r = register_episode(s_img.to(dev), q_img.to(dev), s_lab.to(dev),
+                                 affine_iters=50, demons_iters=50, fit_scale=4,
+                                 sampler=sampler)
+            res[dev] = {k: v.cpu() for k, v in r._asdict().items()}
+            secs[dev] = time.time() - t0
+        g, c = res["cuda"], res["cpu"]
+        m = {"theta": float((g["theta"] - c["theta"]).abs().max()),
+             "flow": float((g["flow"] - c["flow"]).abs().max()),
+             "flow_scale": float(c["flow"].abs().max()),
+             "warped_src": float((g["warped_src"] - c["warped_src"]).abs().max()),
+             "warped_src_mean": float((g["warped_src"] - c["warped_src"]).abs().mean()),
+             "src_moved_mean": float((c["warped_src"] - c["affine_src"]).abs().mean()),
+             "warped_label_agree": float((g["warped_label"] == c["warped_label"]).float().mean()),
+             "dice_affine_prior": float(dice(g["affine_label"], q_lab)[0]),
+             "dice_demons_prior": float(dice(g["warped_label"], q_lab)[0]),
+             "dice_demons_prior_cpu": float(dice(c["warped_label"], q_lab)[0]),
+             "seconds_card_cold": round(secs["cuda"], 3), "seconds_cpu": round(secs["cpu"], 3)}
+        log(f"[reg-reference] {sampler} structure, 4 x 256², 50 affine + 50 demons steps: "
+            f"card vs CPU {json.dumps(m)}")
+        if not (m["warped_label_agree"] > REG_LABEL_AGREE
+                and m["warped_src"] <= REG_SRC_ATOL
+                and m["warped_src_mean"] <= REG_SRC_MEAN_ATOL
+                and m["flow"] <= REG_FLOW_RTOL * m["flow_scale"]):
+            raise AssertionError(f"register_episode ({sampler}) on the card disagrees with "
+                                 f"the CPU: {m}")
+        out[sampler] = m
+    # DEEDS (no path calls it): its default 128² control grid and 15²
+    # shifts on the same slices, the sample grid card vs CPU
+    from rpnet_tpu_torch.registration.deeds import deeds_fit
+
+    mov, fix = ((s_img + 1) * 0.5)[..., None], ((q_img + 1) * 0.5)[..., None]
+    grids = {dev: deeds_fit(mov.to(dev), fix.to(dev)).cpu() for dev in ("cuda", "cpu")}
+    diff = float((grids["cuda"] - grids["cpu"]).abs().max())
+    log(f"[reg-reference] deeds_fit, 4 x 256², 128² grid, 15² shifts: sample grid card vs "
+        f"CPU max |diff| {diff:.3e} (atol 1e-4)")
+    if not diff <= 1e-4:
+        raise AssertionError(f"deeds_fit on the card disagrees with the CPU: {diff}")
+    return out
+
+
+# Set after measuring on an NVIDIA H100 80GB HBM3 (700 W): labels agreed on
+# 0.99998 (matmul) and 0.99991 (gather) of the pixels; the warped image
+# parted by 4.1e-2 and 3.9e-2 at most and 6.3e-5 and 7.7e-5 on average, where
+# the demons move it by 0.52 and 0.47 at most and 1.1e-2 and 5.5e-3 on
+# average (``src_moved_mean``, the CPU's); the raw flow parted by 1.3e-2 of
+# 0.20 and 2.1e-2 of 0.061. Where the flow's gradient is near zero Adam's
+# normalized step moves it by ±lr whatever the gradient's size, and the card
+# and the CPU sum that gradient in another order: the flow moves the image
+# little there, so the image is held tighter than the flow.
+REG_LABEL_AGREE = 0.999
+REG_SRC_ATOL = 0.1
+REG_SRC_MEAN_ATOL = 5e-4
+REG_FLOW_RTOL = 0.5
+
+
+def phase_deformable_eval(cfg, main_episodes):
+    """Phase 3e: the eval CLI on the main path's episodes and weights with
+    ``do_deformable: True`` (50 demons steps), 2 passes, once under
+    ``reg_sampler: matmul`` (the example's) and once under ``gather``: 11
+    launches of row 1 an episode, no failed episode, every Dice finite; each
+    episode's demons prior Dice logged beside the main path's affine-only
+    prior; the warm pass's episodes/s. Then, under matmul, one warm spec
+    dispatch under the sync debug mode and one warm episode profiled."""
+    out, ops = {}, None
+    for sampler in ("matmul", "gather"):
+        results, launches, episodes, passes = run_cli_config(
+            cfg, f"deform_{sampler}", n_runs=2, do_deformable=True, reg_sampler=sampler)
+        n_eps = results["episodes"]
+        if launches != {"local_correlation": 11 * n_eps}:
+            raise AssertionError(f"deformable {sampler}: launches {launches}, expected "
+                                 f"{11 * n_eps} of local_correlation")
+        n_pass = n_eps // 2
+        warm_wall = float(passes[1][1].split()[1].rstrip("s"))
+        pairs = [(round(a["dsc_affine"], 4), round(b["dsc_affine"], 4))
+                 for a, b in zip(main_episodes[:n_pass], episodes[:n_pass])]
+        log(f"[deform-{sampler}] {n_eps} episodes in 2 passes, warm pass {n_pass / warm_wall:.3f} "
+            f"episodes/s ({passes[1][1]}; {passes[1][0]}), CLI wall {results['wall']:.1f}s, "
+            f"launches {launches}; prior Dice per episode (affine only, with demons): {pairs}")
+        out[sampler] = launches
+        if sampler == "matmul":
+            ops = check_dispatch_does_not_block(
+                dict(cfg, do_deformable=True, reg_sampler=sampler), tag=f"deform-{sampler}",
+                host=False)
+    return out, ops
+
+
+def phase_eval_3d():
+    """Phase 3f: the eval CLI with ``yamls/example_3d.yml``'s settings
+    (``eval_3d``, windows of 32 slices overlapping by 8, matmul structure,
+    fit_scale 4, bf16) on 2 synthetic Liver volumes of 80×272×272 (41-54
+    annotated slices: 2 windows each): 11 launches of row 1 a window, no
+    failed volume, finite Dice, and each volume's prediction and prior of
+    the query volume's shape."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from rpnet_tpu_torch.cli import test_rpnet
+    from rpnet_tpu_torch.core.synthetic import generate_dataset
+    from rpnet_tpu_torch.episode import volume3d
+
+    paths = generate_dataset(os.path.join(WORK, "data3d"), n_train=1, n_test=2,
+                             shape=(80, 272, 272), classes=("Liver",), seed=2)
+    with open(os.path.join(ROOT, "yamls", "example_3d.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(data_dir=paths["data_dir"], class_csv_dir=paths["class_dir"],
+               eval_set_name=paths["test_csv"], train_set_name=paths["train_csv"],
+               out_dir=os.path.join(WORK, "out_3d"))
+    path = os.path.join(WORK, "example_3d_synthetic.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+    volumes, orig = [], volume3d.Volume3DRunner.run_volume
+
+    def run_volume(self, support_vol, support_lab, query_vol, query_lab, **kw):
+        res = orig(self, support_vol, support_lab, query_vol, query_lab, **kw)
+        volumes.append((query_vol.shape, res))
+        return res
+
+    volume3d.Volume3DRunner.run_volume = run_volume
+    try:
+        reset_launches()
+        t0 = time.time()
+        results = test_rpnet.main(["--yaml", path])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        volume3d.Volume3DRunner.run_volume = orig
+    wall = time.time() - t0
+    windows = sum(len(volume3d.window_starts(shape[0], 32, 8)) for shape, _ in volumes)
+    r = results["classes"]["Liver"]
+    log(f"[eval-3d] {len(volumes)} volumes (query depths {[s[0] for s, _ in volumes]}), "
+        f"{windows} windows, per volume (affine, fewshot) Dice "
+        f"{[(v.dsc_affine, v.dsc_fewshot) for _, v in volumes]}, class means affine "
+        f"{r['affine'][0]:.4f} fewshot {r['fewshot'][0]:.4f}, CLI wall {wall:.1f}s, "
+        f"launches {launches}")
+    if results["failed_episodes"] or len(volumes) != 2:
+        raise AssertionError(f"eval_3d: {results['failed_episodes']} failed, "
+                             f"{len(volumes)} volumes ran")
+    if windows < 4 or launches != {"local_correlation": 11 * windows}:
+        raise AssertionError(f"eval_3d: launches {launches} in {windows} windows")
+    for shape, v in volumes:
+        if v.prediction.shape != shape or v.appr_label.shape != shape or not all(
+                d is not None and np.isfinite(d) for d in (v.dsc_affine, v.dsc_fewshot)):
+            raise AssertionError(f"eval_3d volume of shape {shape}: {v.prediction.shape}, "
+                                 f"Dice {v.dsc_affine}, {v.dsc_fewshot}")
+    return launches
+
+
+def phase_deformable_training(cfg, default_first_loss: float):
+    """Phase 5c: the train CLI for 2 steps with ``do_deformable: True`` (50
+    demons steps, matmul structure, fit_scale 4) from the training path's
+    seed: 5 forward and 5 backward launches a step, finite losses, the
+    parameters moved; the first loss logged beside the affine-only one."""
+    import torch
+    import yaml
+
+    from rpnet_tpu_torch.cli import train as train_cli
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.models.factory import build_rpnet
+    from rpnet_tpu_torch.train.convert import load_torch_checkpoint
+
+    vcfg = dict(cfg, do_deformable=True, out_dir=os.path.join(WORK, "train_out_deform"))
+    path = os.path.join(WORK, "example_train_deform.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(vcfg, f)
+    reset_launches()
+    t0 = time.time()
+    res = train_cli.main(["--yaml", path, "--epochs", "1", "--episodes-per-epoch",
+                          str(VARIANT_TRAIN_EPISODES)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    steps = len(res["step_losses"])
+    ckpt = load_torch_checkpoint(res["checkpoint"])
+    init = build_rpnet(Config(vcfg), seed=int(vcfg.get("seed", 0))).state_dict()
+    moved = sum(1 for k, v in ckpt["state_dict"].items()
+                if k in init and v.is_floating_point() and not torch.equal(v, init[k]))
+    log(f"[train-deform] {steps} steps: losses {res['step_losses']} (affine-only first loss "
+        f"{default_first_loss}), seconds between steps {res['step_seconds']}, CLI wall "
+        f"{time.time() - t0:.1f}s, {moved} of {len(init)} tensors moved, launches {launches}")
+    expect = {"local_correlation": 5 * steps, "local_correlation_bwd": 5 * steps}
+    if steps != 2 or launches != expect:
+        raise AssertionError(f"deformable training: {steps} steps, launches {launches}, "
+                             f"expected {expect}")
+    if not all(math.isfinite(v) for v in res["step_losses"]) or moved < len(init) // 2:
+        raise AssertionError(f"deformable training: losses {res['step_losses']}, "
+                             f"{moved} tensors moved")
+    return launches
+
+
 def gpu_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1385,17 +1766,23 @@ def main() -> int:
     # the kernel sweep: its own two kernels (rows 8 and 9), then the sweep
     sweep_timed = phase_sweep_kernels()
     sweep_launches = phase_sweep()
+    check_grid_sample()
+    check_affine_sharp()
 
-    _, launches, default_outputs = phase_main_path(yaml_path)
+    _, launches, default_outputs, main_episodes = phase_main_path(yaml_path)
     eval_launches = phase_eval_switches(yaml_path, dq, default_outputs)
     data_launches = phase_data_paths(cfg)
     breadth_launches = phase_breadth(cfg, paths)
+    phase_registration_reference(cfg)
+    deform_launches, deform_ops = phase_deformable_eval(cfg, main_episodes)
+    eval3d_launches = phase_eval_3d()
     measure_bf16_rounding()
     for backbone in ("UNet", "vgg", "resnet"):
         phase_reference(backbone)
     train_yaml, train_cfg = make_train_config()
     train_res, train_launches, _ = phase_training(train_yaml, train_cfg)
     switch_launches = phase_train_switches(train_cfg, train_res["step_losses"][0])
+    train_deform_launches = phase_deformable_training(train_cfg, train_res["step_losses"][0])
     profile_train_step(train_cfg)
     phase_train_reference()
 
@@ -1421,16 +1808,21 @@ def main() -> int:
     # row 1: the main path's count beside its timed shape; the data-path and
     # breadth runs' counts per run, and the C = 512 shapes' times, beside it
     row1_runs = {"main": launches, **{f"data-{k}": v for k, v in data_launches.items()},
-                 **{f"breadth-{k}": v for k, v in breadth_launches.items()}}
+                 **{f"breadth-{k}": v for k, v in breadth_launches.items()},
+                 **{f"deform-{k}": v for k, v in deform_launches.items()},
+                 "eval3d": eval3d_launches}
+    train_runs = {"train": train_launches, "train-deform": train_deform_launches}
     kernels = [
         entry("local_correlation", "local_corr.cu", 289, main_case,
               launches["local_correlation"],
               launches_by_run={k: v.get("local_correlation", 0) for k, v in row1_runs.items()},
               wide_shapes=wide),
         entry("local_correlation_train_forward", "local_corr.cu", 36, train_fwd,
-              train_launches["local_correlation"]),
+              train_launches["local_correlation"],
+              launches_by_run={k: v["local_correlation"] for k, v in train_runs.items()}),
         entry("local_correlation_bwd", "local_corr_bwd.cu", 776, train_bwd,
-              train_launches["local_correlation_bwd"]),
+              train_launches["local_correlation_bwd"],
+              launches_by_run={k: v["local_correlation_bwd"] for k, v in train_runs.items()}),
         entry("local_correlation_band", "local_corr_band.cu", 122, variant["band"],
               opt_in("local_correlation_band")),
         entry("local_correlation_pdot", "local_corr_band.cu", 289, variant["pdot"],
@@ -1447,7 +1839,9 @@ def main() -> int:
     for name, res in wide.items():
         log(f"[kernels] {name} shape, local_correlation: {json.dumps(res)}")
     log(f"[kernels] local_correlation launches: main path {launches}, data paths "
-        f"{data_launches}, breadth {breadth_launches}")
+        f"{data_launches}, breadth {breadth_launches}, deformable {deform_launches}, "
+        f"eval_3d {eval3d_launches}; training {train_runs}; device operations of one "
+        f"warm deformable (matmul) episode {deform_ops}")
     for kind, res in variant_train.items():
         log(f"[kernels] training shape, {kind}: {json.dumps(res)}")
     for (kind, dtype), res in sweep_timed.items():

@@ -16,7 +16,8 @@ default) an episode ships as slice indices into volumes held on the device
 episodes ahead on the host. Episode j is queued before episode j - 1 is
 settled. The ``stage_timing`` line reports the host seconds of the ``data``,
 ``dispatch`` and ``episode_compute`` (waiting for an episode's result)
-stages.
+stages. With ``eval_3d`` each pass segments every slice of each query volume
+instead (``episode/volume3d.py``, sliding windows), one process only.
 
 It runs on the GPU (``--platform gpu``, the default) and raises when there
 is none; ``--platform cpu`` runs on the CPU with the kernels' plain versions.
@@ -43,6 +44,7 @@ from rpnet_tpu_torch.config import Config, load_yaml
 from rpnet_tpu_torch.episode.pipeline import EpisodeRunner
 from rpnet_tpu_torch.episode.prefetch import EpisodeFailure, PrefetchingSampler
 from rpnet_tpu_torch.episode.sampler import EpisodeSampler, EpisodeSpec
+from rpnet_tpu_torch.episode.volume3d import Volume3DRunner, Volume3DSampler
 from rpnet_tpu_torch.models.factory import build_rpnet
 from rpnet_tpu_torch.utils.logger import Logger
 
@@ -202,6 +204,45 @@ def evaluate(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
     return dsc_affine_list, dsc_fewshot_list, dsc_refinement_list, failures
 
 
+def evaluate_3d(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
+    """One whole-volume eval pass (``eval_3d``; the JAX CLI's ``evaluate_3d``,
+    rpnet_tpu/cli/test_rpnet.py:252-320): every query slice segmented in
+    sliding z-windows, the overlaps averaged, per-volume Dice aggregated per
+    class. A volume's failure is logged and counted, and the pass goes on."""
+    eval_classes = config["eval_classes"]
+    vrunner = Volume3DRunner(runner, window=int(config.get("slice_bucket", 32)),
+                             overlap=int(config.get("overlap_3d", 8)))
+    vsampler = Volume3DSampler(sampler)
+    dsc_affine_list = defaultdict(list)
+    dsc_fewshot_list = defaultdict(list)
+    failures = 0
+    for j in range(len(vsampler)):
+        try:
+            supp_img, supp_lab, qry_img, qry_lab, meta = vsampler.sample(j)
+            res = vrunner.run_volume(supp_img, supp_lab, qry_img, qry_lab,
+                                     sampler=sampler, supp_key=meta["supp_key"],
+                                     qry_key=meta["qry_key"])
+        except Exception:
+            failures += 1
+            print(f"{j} VOLUME FAILED — skipping:\n{traceback.format_exc()}")
+            continue
+        cls = eval_classes[meta["class_id"]]
+        print(f"{j} {meta['pid']} {meta['supp_pid']} affine {res.dsc_affine}, "
+              f"fewshot {res.dsc_fewshot} ({res.n_windows} windows)")
+        if res.dsc_affine is not None:
+            dsc_affine_list[cls].append(res.dsc_affine)
+        if res.dsc_fewshot is not None:
+            dsc_fewshot_list[cls].append(res.dsc_fewshot)
+
+    for cls in eval_classes:
+        aff, few = dsc_affine_list[cls], dsc_fewshot_list[cls]
+        print(f"{cls}, affine {np.average(aff) if aff else float('nan')}, "
+              f"fewshot {np.average(few) if few else float('nan')}")
+    if failures:
+        print(f"[{failures} volume(s) failed this pass]")
+    return dsc_affine_list, dsc_fewshot_list, defaultdict(lambda: defaultdict(list)), failures
+
+
 def main(argv=None):
     args = parser.parse_args(argv)
     if not args.yaml:
@@ -212,9 +253,9 @@ def main(argv=None):
     config = Config(load_yaml(args.yaml))
     # eval uses the test-time refinement depth (test_rpnet.py:51)
     config = config.replace(n_iter_refinement=config["n_test_iter_refinement"])
-    if config.get("net", "RP_Net") != "RP_Net" or config.get("eval_3d"):
-        raise NotImplementedError("rpnet_tpu_torch ports the RP_Net episodic "
-                                  "eval only (no LGCANet_V3, no eval_3d yet)")
+    if config.get("net", "RP_Net") != "RP_Net":
+        raise NotImplementedError("rpnet_tpu_torch ports the RP_Net eval only "
+                                  "(no LGCANet_V3 yet)")
 
     seed = int(config.get("seed", 0))
     np.random.seed(seed)
@@ -248,10 +289,11 @@ def run_eval_protocol(runner, sampler, config: Config, out_dir: str, n_runs: int
     t0 = time.time()
     total_episodes = 0
     total_failures = 0
+    eval_fn = evaluate_3d if config.get("eval_3d") else evaluate
     for i in range(n_runs):
         print(f"{i + 1} / {n_runs}")
         t_pass = time.time()
-        a, f, r, failures = evaluate(runner, sampler, config)
+        a, f, r, failures = eval_fn(runner, sampler, config)
         print(f"pass_wall {time.time() - t_pass:.3f}s / {len(sampler)} episodes")
         total_episodes += len(sampler)
         total_failures += failures

@@ -69,6 +69,10 @@ _DEFAULTS: Dict[str, Any] = {
     "reg_affine_iters": 50,    # few_shot_reader.py:159 iters=[50, ...]
     "reg_lr": 0.01,            # few_shot_reader.py:148-149
     "reg_fit_scale": 1,        # fit theta on an image pooled by N (1 = reference-exact)
+    "reg_demons_iters": 50,    # demons Adam steps when do_deformable
+    "reg_sigma": 2.0,          # demons Gaussian regulariser σ (full resolution)
+    "reg_sampler": "matmul",   # demons structure: matmul (pooled fit, the
+                               # JAX default) | gather (register_slice's)
     # --- augmentation (example.yml:34,111-114) ---
     "do_intaug": True,
     "gamma_range": [0.5, 1.5],
@@ -102,7 +106,9 @@ _DEFAULTS: Dict[str, Any] = {
                                 # cache is off (episode/prefetch.py)
     "use_all_supports": False,  # one shot per support volume (eval)
     "multishot_fusion": False,  # register every shot, fuse over shots
-    "eval_3d": False,           # not ported (raises when set)
+    "eval_3d": False,           # whole-volume sliding-window eval
+    "overlap_3d": 8,            # z-overlap between eval_3d windows
+    "slice_bucket": 32,         # eval_3d window (the JAX runner's bucket)
 }
 
 

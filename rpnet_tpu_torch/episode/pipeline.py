@@ -2,12 +2,14 @@
 
 The counterpart of ``rpnet_tpu/episode/pipeline.py``. The episode function:
 
-  1. registration, f32 (``registration/fit.py``): shot 0 registered onto
-     every query slice (the reference path; the eval reader discards the
-     other shots, few_shot_reader.py:521-548); with ``multishot_fusion`` and
-     more than one shot every shot in one batched fit, the prior being the
-     mean of the shots' warped labels > 0.5; with ``use_registration_loss:
-     False`` none, the raw support and its label feeding the network;
+  1. registration, f32 (``registration/fit.py``): affine, then with
+     ``do_deformable`` demons in the ``reg_sampler`` structure; shot 0
+     registered onto every query slice (the reference path; the eval reader
+     discards the other shots, few_shot_reader.py:521-548); with
+     ``multishot_fusion`` and more than one shot every shot in one batched
+     fit, the prior being the mean of the shots' warped labels > 0.5; with
+     ``use_registration_loss: False`` none, the raw support and its label
+     feeding the network;
   2. with ``n_way`` > 1 the supports tiled over the ways (the reference
      replicates them, few_shot_reader.py:294-298), so the softmax runs over
      1 + n_way channels;
@@ -22,7 +24,8 @@ The runner splits an episode into :meth:`EpisodeRunner.dispatch` (or
 once, and :meth:`~EpisodeRunner.finalize`, which waits for that episode's
 packed vector only, so the CLI can queue episode j before it settles j - 1.
 Host arrays go up from pinned buffers without blocking the host, and the
-packed vector comes back into one. ``dispatch_spec`` takes an
+packed vector comes back into one (with ``arrays``, the prediction and the
+registration prior too, as uint8, for the whole-volume eval). ``dispatch_spec`` takes an
 :class:`~rpnet_tpu_torch.episode.sampler.EpisodeSpec`: each ``(pid, roi)``
 volume is uploaded once into an LRU on the device (``device_volume_cache``
 entries; 0 turns it off) and the episode's slices are gathered there.
@@ -37,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,14 +53,17 @@ from rpnet_tpu_torch.registration.fit import register_episode
 def episode_metrics_fn(model, affine_iters: int, fit_scale: int = 1,
                        compute_dtype=torch.float32, reg_lr: float = 0.01,
                        multishot: bool = False, use_registration: bool = True,
-                       n_way: int = 1):
-    """The episode function for ``model`` (already cast to ``compute_dtype``)."""
+                       n_way: int = 1, demons_iters: int = 0,
+                       reg_sigma: float = 2.0, reg_sampler: str = "matmul"):
+    """The episode function for ``model`` (already cast to ``compute_dtype``):
+    ``fn(...)`` → (packed metrics, last refinement's mask (Dq, H, W), prior)."""
 
     def register(supp_img, supp_lab, qry_img):
         """→ (prior (Dq, H, W), network supports (1, Sh', Dq, H, W, 1), their
         labels (1, Sh', Dq, H, W), the warped support of shot 0)."""
         Sh, Dq, H, W = supp_img.shape
-        kw = dict(affine_iters=affine_iters, lr=reg_lr, fit_scale=fit_scale)
+        kw = dict(affine_iters=affine_iters, demons_iters=demons_iters, lr=reg_lr,
+                  sigma=reg_sigma, fit_scale=fit_scale, sampler=reg_sampler)
         if not use_registration:
             return (supp_lab[0], supp_img[0][None, None, ..., None],
                     supp_lab[0][None, None], supp_img[0])
@@ -93,9 +99,10 @@ def episode_metrics_fn(model, affine_iters: int, fit_scale: int = 1,
         w3 = w[:, None, None]
         ncc_warped = ncc(warped_src, qry_img, weight=w3)
         ncc_raw = ncc(supp_img[0], qry_img, weight=w3)
-        return torch.cat([torch.stack([dsc_affine, dsc_fewshot,
-                                       affine_valid.float(), ncc_warped,
-                                       ncc_raw]), dsc_ref])
+        packed = torch.cat([torch.stack([dsc_affine, dsc_fewshot,
+                                         affine_valid.float(), ncc_warped,
+                                         ncc_raw]), dsc_ref])
+        return packed, ref_preds[-1], appr
 
     return fn
 
@@ -103,20 +110,19 @@ def episode_metrics_fn(model, affine_iters: int, fit_scale: int = 1,
 @dataclasses.dataclass
 class Dispatched:
     """A queued episode: its packed vector (on the host once ``done`` has
-    completed), its slice count, and the pinned buffers its copies read."""
+    completed), its slice count, the pinned buffers its copies read, and
+    with ``arrays`` its (prediction, prior) as uint8 host tensors."""
     packed: torch.Tensor
     done: Any                       # torch.cuda.Event, None on the CPU
     n_slices: int
     keep: List[torch.Tensor]
+    arrays: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 class EpisodeRunner:
     """Runs episodes through :func:`episode_metrics_fn` on one device."""
 
     def __init__(self, model, config, device):
-        if config.get("do_deformable", False):
-            raise NotImplementedError("do_deformable: the demons registration is "
-                                      "not ported to rpnet_tpu_torch yet (ROADMAP.md)")
         self.device = torch.device(device)
         self.max_slices = int(config.get("max_slices", 288))
         compute_dtype = getattr(torch, config.get("compute_dtype") or "bfloat16")
@@ -130,7 +136,11 @@ class EpisodeRunner:
             float(config.get("reg_lr", 0.01)),
             multishot=bool(config.get("multishot_fusion", False)),
             use_registration=bool(config.get("use_registration_loss", True)),
-            n_way=int(config.get("n_way", 1)))
+            n_way=int(config.get("n_way", 1)),
+            demons_iters=(int(config.get("reg_demons_iters", 50))
+                          if config.get("do_deformable", False) else 0),
+            reg_sigma=float(config.get("reg_sigma", 2.0)),
+            reg_sampler=str(config.get("reg_sampler", "matmul")))
         self._dev_vols: "OrderedDict[Tuple[str, str], Tuple[torch.Tensor, torch.Tensor]]" \
             = OrderedDict()
         self._dev_vols_max = int(config.get("device_volume_cache", 16))
@@ -163,10 +173,11 @@ class EpisodeRunner:
             self._dev_vols.popitem(last=False)
         return pair
 
-    def dispatch_spec(self, spec: EpisodeSpec, sampler) -> Dispatched:
+    def dispatch_spec(self, spec: EpisodeSpec, sampler, arrays: bool = False) -> Dispatched:
         """Queue an index-only episode: its volumes from the device cache,
-        its slices gathered on the device (``index_select``), the labels
-        widened to f32 there. Per episode only the support rows go up."""
+        its slices gathered on the device (``index_select``; the query's
+        ``qry_rows``, or its first slices), the labels widened to f32 there.
+        Per episode only the row indices go up."""
         take = min(spec.n_slices, self.max_slices)
         keep: List[torch.Tensor] = []
         sv, sl = self._device_volume(sampler, spec.supp_key, keep)
@@ -174,40 +185,51 @@ class EpisodeRunner:
         shots = spec.supp_rows.shape[0]
         rows = self._upload(spec.supp_rows[:, :take].astype(np.int64).ravel(), keep)
         shape = (shots, take) + tuple(sv.shape[1:])
+        if spec.qry_rows is None:
+            qry_img, qry_lab = qv[:take], ql[:take]
+        else:
+            qrows = self._upload(spec.qry_rows[:take].astype(np.int64), keep)
+            qry_img, qry_lab = qv.index_select(0, qrows), ql.index_select(0, qrows)
         return self._queue(sv.index_select(0, rows).view(shape),
                            sl.index_select(0, rows).view(shape).float(),
-                           qv[:take], ql[:take].float(), spec.n_slices, keep)
+                           qry_img, qry_lab.float(), spec.n_slices, keep, arrays)
 
-    def dispatch(self, ep: Episode) -> Dispatched:
+    def dispatch(self, ep: Episode, arrays: bool = False) -> Dispatched:
         """Queue an episode assembled on the host."""
         take = min(ep.n_slices, self.max_slices)
         keep: List[torch.Tensor] = []
         up = lambda a: self._upload(a[..., :take, :, :], keep)
         return self._queue(up(ep.support_images), up(ep.support_labels),
-                           up(ep.query_images), up(ep.query_labels), ep.n_slices, keep)
+                           up(ep.query_images), up(ep.query_labels), ep.n_slices, keep,
+                           arrays)
 
-    def _queue(self, supp_img, supp_lab, qry_img, qry_lab, n_slices, keep):
+    def _queue(self, supp_img, supp_lab, qry_img, qry_lab, n_slices, keep, arrays):
+        """Run the episode function; with ``arrays`` also bring back its
+        prediction and prior (exactly {0, 1}: uint8 holds them)."""
         with torch.no_grad():
-            packed = self.fn(supp_img, supp_lab, qry_img, qry_lab,
-                             torch.ones(qry_img.shape[0], device=self.device))
+            packed, pred, prior = self.fn(supp_img, supp_lab, qry_img, qry_lab,
+                                          torch.ones(qry_img.shape[0], device=self.device))
+        out = [packed] + ([pred.to(torch.uint8), prior.to(torch.uint8)] if arrays else [])
         if self.device.type != "cuda":
-            return Dispatched(packed, None, n_slices, keep)
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
+            return Dispatched(out[0], None, n_slices, keep, tuple(out[1:]) or None)
+        host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True) for a in out]
+        for h, a in zip(host, out):
+            h.copy_(a, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return Dispatched(host, done, n_slices, keep)
+        return Dispatched(host[0], done, n_slices, keep, tuple(host[1:]) or None)
 
     def finalize(self, d: Dispatched) -> Dict[str, Any]:
         """Wait for the episode's packed vector (that episode only) and apply
         the host conventions (None for empty ground truth,
-        utils/util.py:388-389)."""
+        utils/util.py:388-389); with a dispatch's ``arrays``, also its
+        ``prediction`` and ``appr_label`` (Dq, H, W) uint8 arrays."""
         if d.done is not None:
             d.done.synchronize()
         packed = d.packed.numpy()
         d.keep.clear()
         nonempty = bool(packed[2] > 0.5)
-        return {
+        result = {
             "dsc_affine": float(packed[0]) if nonempty else None,
             "dsc_fewshot": float(packed[1]) if nonempty else None,
             "dsc_refinement": {i: (float(v) if nonempty else None)
@@ -216,6 +238,9 @@ class EpisodeRunner:
             "ncc_raw": float(packed[4]),
             "n_slices": d.n_slices,
         }
+        if d.arrays is not None:
+            result["prediction"], result["appr_label"] = (a.numpy() for a in d.arrays)
+        return result
 
     def run(self, ep: Episode) -> Dict[str, Any]:
         return self.finalize(self.dispatch(ep))

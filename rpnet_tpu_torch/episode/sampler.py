@@ -82,10 +82,11 @@ class EpisodeSpec:
     supp_key: Tuple[str, str]       # (pid, roi) of the last support volume
     qry_key: Tuple[str, str]
     supp_rows: np.ndarray           # (test_shot, Dq) int32 rows into support
-    n_slices: int                   # Dq; query rows are 0..Dq-1
+    n_slices: int                   # Dq
     class_id: int
     pid: str
     supp_pids: List[Tuple[int, int]]
+    qry_rows: Optional[np.ndarray] = None   # (Dq,) query rows; None: 0..Dq-1
 
 
 def slice_bins(num_support_slices: Sequence[int], num_query_slices: int, k: int):

@@ -143,6 +143,11 @@ class MaxPool2d(torch.nn.Module):
         return max_pool2d(x, self.kernel, self.stride, self.padding)
 
 
+def replication_pad2d(x, pad: int):
+    """``nn.ReplicationPad2d(pad)`` on (N, H, W, C) input."""
+    return _nhwc(F.pad(_nchw(x), (pad, pad, pad, pad), mode="replicate"))
+
+
 def upsample_nearest2x(x):
     """``nn.Upsample(scale_factor=2)`` (nearest) on (N, H, W, C) input."""
     return _nhwc(F.interpolate(_nchw(x), scale_factor=2, mode="nearest"))

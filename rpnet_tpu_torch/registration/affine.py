@@ -26,13 +26,23 @@ def affine_warp(x, theta):
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8   # torch.optim.Adam defaults
 
 
+def adam_update(param, g, mu, nu, t: int, lr: float):
+    """One Adam step (1-based ``t``) in optax's form, as the JAX package
+    runs it → (param, mu, nu)."""
+    mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
+    nu = (1 - ADAM_B2) * g * g + ADAM_B2 * nu
+    mu_hat = mu / (1 - ADAM_B1 ** t)
+    nu_hat = nu / (1 - ADAM_B2 ** t)
+    return param - lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)), mu, nu
+
+
 def fit_affine(moving, fixed, iters: int = 50, lr: float = 0.01):
     """Fit theta by Adam. moving/fixed: (S, H, W, C) → (theta (S, 2, 3),
     losses (iters, S)).
 
     torch.optim.Adam's defaults and update order (dataset/few_shot_reader.py:148):
     the loss recorded at step i is evaluated at theta_i before the update.
-    The update is written out in optax's form, as the JAX package runs it.
+    The update is :func:`adam_update`.
     """
     S = moving.shape[0]
     # the identity, made on the device (a tensor from host data would be a
@@ -47,9 +57,5 @@ def fit_affine(moving, fixed, iters: int = 50, lr: float = 0.01):
             per_slice = torch.mean((fixed - affine_warp(moving, th)) ** 2, dim=(1, 2, 3))
             (g,) = torch.autograd.grad(per_slice.sum(), th)
             losses.append(per_slice.detach())
-            mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
-            nu = (1 - ADAM_B2) * g * g + ADAM_B2 * nu
-            mu_hat = mu / (1 - ADAM_B1 ** t)
-            nu_hat = nu / (1 - ADAM_B2 ** t)
-            theta = theta - lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
+            theta, mu, nu = adam_update(theta, g, mu, nu, t, lr)
     return theta.detach(), torch.stack(losses)

@@ -11,11 +11,12 @@ The counterpart of ``rpnet_tpu/train/trainer.py:46-218``:
   * loss: the registry's ``loss`` (default dice_ce) on the last refinement
     logits — or, with ``deep_supervision``, on every iteration's, ``equal``
     or ``linear`` weights — plus ``align_loss_scaler`` × the align loss;
-  * the registration prior (affine fit, no gradient) comes first, as in the
-    JAX step; ``use_registration_loss: False`` feeds the raw support. The
-    port's fit samples with ``F.grid_sample``, the values of the JAX fit's
-    ``reg_sampler: gather``; its default ``matmul`` form agrees to the Dice
-    level (ROADMAP.md).
+  * the registration prior (affine fit, then with ``do_deformable`` the
+    demons fit in the ``reg_sampler`` structure; no gradient) comes first,
+    as in the JAX step; ``use_registration_loss: False`` feeds the raw
+    support. The port's fit samples with ``F.grid_sample``, the values of
+    the JAX fit's ``reg_sampler: gather``; its default ``matmul`` form
+    agrees to the Dice level (ROADMAP.md).
 
 The JAX step vmaps one episode's loss over E episodes. Here the E episodes
 are folded into the slice axis of one forward (the correlation kernels
@@ -96,9 +97,6 @@ def check_ported(config) -> None:
     if (config.get("compute_dtype") or "float32") != "float32":
         raise NotImplementedError(f"compute_dtype {config.get('compute_dtype')!r} "
                                   "training is not ported yet (float32 only)")
-    if config.get("do_deformable", False):
-        raise NotImplementedError("do_deformable: the demons registration is "
-                                  "not ported to rpnet_tpu_torch yet")
 
 
 def make_train_step(model, config, optimizer) -> Callable:
@@ -111,6 +109,10 @@ def make_train_step(model, config, optimizer) -> Callable:
     """
     check_ported(config)
     affine_iters = int(config.get("reg_affine_iters", 50))
+    demons_iters = (int(config.get("reg_demons_iters", 50))
+                    if config.get("do_deformable", False) else 0)
+    reg_sigma = float(config.get("reg_sigma", 2.0))
+    reg_sampler = str(config.get("reg_sampler", "matmul"))
     fit_scale = int(config.get("reg_fit_scale", 1))
     reg_lr = float(config.get("reg_lr", 0.01))
     align_scaler = float(config.get("align_loss_scaler", 1.0))
@@ -127,8 +129,9 @@ def make_train_step(model, config, optimizer) -> Callable:
         reg = register_episode(supp_img[:, 0].reshape(E * k, H, W),
                                qry_img.reshape(E * k, H, W),
                                supp_lab[:, 0].reshape(E * k, H, W),
-                               affine_iters=affine_iters, lr=reg_lr,
-                               fit_scale=fit_scale)
+                               affine_iters=affine_iters, demons_iters=demons_iters,
+                               lr=reg_lr, sigma=reg_sigma, fit_scale=fit_scale,
+                               sampler=reg_sampler)
         return tuple(a.reshape(E, k, H, W) for a in
                      (reg.warped_label, reg.affine_src, reg.affine_label))
 

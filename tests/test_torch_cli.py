@@ -100,6 +100,75 @@ def test_cli_parity(tmp_path, data_path):
     assert tl == jl
 
 
+def test_deformable_eval_matches_jax(tmp_path, capsys, request, monkeypatch):
+    """``do_deformable: True`` (4 demons steps). The gather structure: the
+    JAX CLI's ``evaluate`` on a JAX runner built directly (its ``main``
+    spends ~25 s initializing a model on the host) against the port's CLI
+    ``main``: the same per-episode lines (numbers aside), every episode's
+    Dice within 1e-3. The matmul structure at ``reg_fit_scale`` 2 (pooled
+    fit, upsampled displacement) through the port's CLI: no failure, every
+    Dice finite (the JAX package's matmul form takes another affine
+    trajectory by design; the structure is held against a JAX oracle and at
+    the Dice level in ``test_torch_demons.py``). Both runners integrate with
+    4 squarings here: at 10, compiling the JAX fit under its gradient makes
+    this test nearly twice as slow, and the 10-squaring integration is held
+    in ``test_torch_demons.py``."""
+    import functools
+    import random
+
+    import rpnet_tpu.episode.pipeline as jax_pipeline
+    import rpnet_tpu_torch.episode.pipeline as torch_pipeline
+
+    from rpnet_tpu.config import Config as JaxConfig
+    from rpnet_tpu.episode.pipeline import EpisodeRunner as JaxEpisodeRunner
+    from rpnet_tpu.episode.sampler import EpisodeSampler as JaxEpisodeSampler
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)   # small shapes; the suite runs several workers
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
+    for mod in (jax_pipeline, torch_pipeline):
+        monkeypatch.setattr(mod, "register_episode",
+                            functools.partial(mod.register_episode, diffeo_scaling=4))
+    paths = generate_dataset(str(tmp_path / "data"), n_train=3, n_test=3,
+                             shape=(20, 48, 48), seed=0)
+    model, variables = jax_rpnet(radius=2, num_iter=2, size=32, seed=3)
+    ckpt = str(tmp_path / "shared.pth")
+    torch.save({"epoch": 0, "state_dict": state_dict_from_jax(variables)}, ckpt)
+    raw = _config(paths, str(tmp_path / "gather"), ckpt, do_deformable=True,
+                  reg_demons_iters=4, reg_sampler="gather")
+
+    jconfig = JaxConfig(raw).replace(n_iter_refinement=raw["n_test_iter_refinement"])
+    random.seed(0)
+    np.random.seed(0)
+    j_aff, _, _, j_fail = jax_cli.evaluate(
+        JaxEpisodeRunner(model, variables, jconfig),
+        JaxEpisodeSampler(raw["data_dir"], raw["eval_set_name"], jconfig, mode="eval"),
+        jconfig)
+    jl = [l.rstrip() for l in capsys.readouterr().out.splitlines()
+          if re.match(r"^\d+ syn\d+ syn\d+ affine ", l)]
+
+    res = {}
+    for name, kw in (("gather", {}), ("matmul", dict(reg_sampler="matmul", reg_fit_scale=2))):
+        ypath = str(tmp_path / f"{name}.yml")
+        with open(ypath, "w") as f:
+            yaml.safe_dump(dict(raw, out_dir=str(tmp_path / name), **kw), f)
+        res[name] = torch_cli.main(["--yaml", ypath, "--platform", "cpu"])
+        assert res[name]["failed_episodes"] == 0 and res[name]["episodes"] == 3
+    assert j_fail == 0
+    with open(str(tmp_path / "gather" / "log_eval")) as f:
+        tl = [l.rstrip() for l in f if re.match(r"^\d+ syn\d+ syn\d+ affine ", l)]
+    assert len(jl) == 3 and [_FLOAT.sub("#", l) for l in tl] == [_FLOAT.sub("#", l) for l in jl]
+    # per episode: (ncc_warped, ncc_raw) printed to 4 decimals, then the
+    # affine, fewshot, ref 0 and ref 1 Dice
+    nums = lambda lines: np.array([[float(m.group()) for m in _FLOAT.finditer(l)]
+                                   for l in lines])
+    np.testing.assert_allclose(nums(tl)[:, :2], nums(jl)[:, :2], atol=2e-4)
+    np.testing.assert_allclose(nums(tl)[:, 2:], nums(jl)[:, 2:], atol=1e-3)
+    assert np.abs(nums(jl)[:, 2] - np.array(j_aff["Liver"])).max() < 1e-6
+    assert all(np.isfinite(v) for r in res["matmul"]["classes"]["Liver"].values()
+               for v in (r if isinstance(r, list) else sum(r.values(), [])))
+
+
 def test_cli_refuses_to_fall_back_to_cpu(tmp_path, monkeypatch):
     """--platform gpu (the default) raises without a GPU; never a CPU run."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

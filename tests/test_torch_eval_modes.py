@@ -70,8 +70,9 @@ def _compare(pair, kw, supp, supl, qimg, qlab):
         lambda m, args, out: seen.update(args=args, ref=out["refinement"]))
     try:
         tfn = episode_metrics_fn(port, 3, 1, torch.float32, **kw)
-        out = tfn(*[torch.from_numpy(a) for a in (supp, supl, qimg, qlab)],
-                  torch.ones(qimg.shape[0])).numpy()
+        out, out_pred, out_appr = (t.numpy() for t in tfn(
+            *[torch.from_numpy(a) for a in (supp, supl, qimg, qlab)],
+            torch.ones(qimg.shape[0])))
     finally:
         hook.remove()
 
@@ -85,6 +86,9 @@ def _compare(pair, kw, supp, supl, qimg, qlab):
     pred = (np.exp(last[..., 1]) / np.exp(last).sum(-1)) > 0.5
     assert np.mean(appr == np.asarray(ref["appr_label"])) > 0.999
     assert np.mean(pred == np.asarray(ref["prediction"])) > 0.999
+    np.testing.assert_array_equal(out_appr, appr)
+    np.testing.assert_array_equal(
+        out_pred, (torch.softmax(seen["ref"][-1], dim=-1)[..., 1] > 0.5).numpy())
 
     # the JAX network on the port's network inputs
     logits = np.asarray(jax.jit(lambda v, *a: model.apply(v, *a, train=False)["refinement"])(

@@ -166,3 +166,24 @@ def test_train_augmentations_match_jax():
         outs.append([gamma(img, [0.5, 1.5]), *affine(img, lab), np.random.rand()])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def test_host_dice_matches_jax():
+    """``dice_score`` (per label value) and ``dice_score_seperate`` (per
+    channel): the same rounded values, None where a class has no ground
+    truth."""
+    from rpnet_tpu.core.metrics import dice_score as jax_dice_score
+    from rpnet_tpu.core.metrics import dice_score_seperate as jax_dice_score_seperate
+    from rpnet_tpu_torch.core.metrics import dice_score, dice_score_seperate
+
+    rng = np.random.RandomState(4)
+    pred = rng.randint(0, 3, (6, 9, 9))
+    true = rng.randint(0, 2, (6, 9, 9))          # no voxel of class 2
+    out = dice_score(pred, true, num_class=3)
+    assert out == jax_dice_score(pred, true, num_class=3) and out[2] is None
+    chans_p = (rng.rand(3, 5, 8, 8) > 0.5).astype(np.float32)
+    chans_t = (rng.rand(3, 5, 8, 8) > 0.6).astype(np.float32)
+    chans_t[1] = 0
+    out = dice_score_seperate(chans_p, chans_t, num_class=3, decimal=3)
+    assert out == jax_dice_score_seperate(chans_p, chans_t, num_class=3, decimal=3)
+    assert out[1] is None and out[0] is not None

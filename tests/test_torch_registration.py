@@ -17,6 +17,7 @@ here are smooth (a soft-edged organ on a low-frequency texture), as CT
 slices pooled for the fit are.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,6 +60,7 @@ def test_register_episode_matches_gather_mode(fit_scale, seed):
                            fit_scale=fit_scale)
     theta = out.theta.numpy()
     assert np.abs(theta - np.eye(2, 3)).max() > 1e-3     # the fit moved
+    assert out.flow is None                              # no demons steps
     np.testing.assert_allclose(theta, np.asarray(ref.theta), atol=5e-5)
     for name in ("warped_label", "affine_label"):
         agree = np.mean(getattr(out, name).numpy() == np.asarray(getattr(ref, name)))
@@ -93,3 +95,51 @@ def test_dice_and_ncc_match():
         out = ncc(torch.from_numpy(a), torch.from_numpy(b),
                   weight=None if weight is None else torch.from_numpy(weight))
         np.testing.assert_allclose(out.item(), float(ref), rtol=1e-5)
+    # per slice (the demons loss): the JAX global NCC of each slice alone
+    per_slice = ncc(torch.from_numpy(a), torch.from_numpy(b), dims=(1, 2)).numpy()
+    ref = [float(jax_ncc(jnp.asarray(x), jnp.asarray(y))) for x, y in zip(a, b)]
+    np.testing.assert_allclose(per_slice, ref, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+def test_deeds_fit_matches_jax(mode):
+    """DEEDS (``registration/deeds.py``) on 2 slices at 48², a 24² control
+    grid and 7² candidate shifts: the sample grid within 1e-5 of the JAX
+    package's per-slice one (pools and a softmax in f32), its warp within
+    1e-4. The affine + DEEDS pair with 10 affine steps: theta is the port's
+    ``fit_affine`` (held above; the JAX ``affine_deeds_fit`` fits with its
+    default matmul sampler, another trajectory by design), the grid and the
+    combined warp against the JAX functions at that theta."""
+    from functools import partial
+
+    from rpnet_tpu.registration import deeds as jdeeds
+    from rpnet_tpu.registration.affine import affine_warp as jax_affine_warp
+    from rpnet_tpu_torch.registration import deeds
+    from rpnet_tpu_torch.registration.affine import fit_affine
+
+    s_img, _, q_img = registration_inputs(2, 48, seed=4)
+    mov, fix = s_img[..., None] * 0.5 + 0.5, q_img[..., None] * 0.5 + 0.5
+    kw = dict(grid_size=24, disp_range=0.1, displacement_width=7, mode=mode)
+    jfit = jax.jit(jax.vmap(partial(jdeeds.deeds_fit, **kw)))
+    ref = np.asarray(jfit(jnp.asarray(mov), jnp.asarray(fix)))
+    out = deeds.deeds_fit(torch.from_numpy(mov), torch.from_numpy(fix), **kw)
+    same = deeds.deeds_fit(torch.from_numpy(fix), torch.from_numpy(fix), **kw)
+    assert out.shape == ref.shape == (2, 48, 48, 2)
+    assert (out - same).abs().max() > 1e-3      # the grid follows the image
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    warped = deeds.deeds_warp(torch.from_numpy(mov), out).numpy()
+    ref_w = jax.vmap(jdeeds.deeds_warp)(jnp.asarray(mov), jnp.asarray(ref))
+    np.testing.assert_allclose(warped, np.asarray(ref_w), atol=1e-4)
+
+    theta, grid = deeds.affine_deeds_fit(torch.from_numpy(mov), torch.from_numpy(fix),
+                                         affine_iters=10, **kw)
+    assert torch.equal(theta, fit_affine(torch.from_numpy(mov), torch.from_numpy(fix),
+                                         iters=10)[0])
+    th = jnp.asarray(theta.numpy())
+    jgrid = jfit(jax.vmap(jax_affine_warp)(jnp.asarray(mov), th), jnp.asarray(fix))
+    np.testing.assert_allclose(grid.numpy(), np.asarray(jgrid), atol=1e-4)
+    np.testing.assert_allclose(
+        deeds.affine_deeds_warp(torch.from_numpy(mov), theta, grid).numpy(),
+        np.asarray(jax.vmap(jdeeds.affine_deeds_warp)(jnp.asarray(mov), th,
+                                                      jnp.asarray(grid.numpy()))),
+        atol=1e-4)

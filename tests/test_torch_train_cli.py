@@ -112,7 +112,7 @@ def test_train_cli_refuses_to_fall_back_to_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [("n_way", 2), ("compute_dtype", "bfloat16"),
-                                       ("do_deformable", True)])
+                                       ("backbone", "vgg")])
 def test_train_step_refuses_what_is_not_ported(key, value):
     from rpnet_tpu_torch.models.factory import build_rpnet
     from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
@@ -121,3 +121,27 @@ def test_train_step_refuses_what_is_not_ported(key, value):
     cfg = {key: value}
     with pytest.raises(NotImplementedError):
         make_train_step(model, cfg, make_optimizer(model.parameters(), cfg))
+
+
+def test_train_cli_runs_deformable(tmp_path, request):
+    """The port's train CLI with ``do_deformable: True`` (3 demons steps at
+    ``reg_fit_scale`` 2) under both structures: one finite step each, and
+    losses that differ (the structure reaches the prior; the step itself is
+    held against the JAX trainer in ``test_torch_train_steps.py``)."""
+    paths = generate_dataset(str(tmp_path / "data"), n_train=2, n_test=1,
+                             shape=(16, 48, 48), seed=0)
+    first = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)   # small shapes; the suite runs several workers
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
+    for sampler in ("matmul", "gather"):
+        cfg = dict(_config(paths, str(tmp_path / sampler), None), use_registration_loss=True,
+                   do_deformable=True, reg_demons_iters=3, reg_affine_iters=4,
+                   reg_fit_scale=2, reg_sampler=sampler)
+        ypath = str(tmp_path / f"{sampler}.yml")
+        with open(ypath, "w") as f:
+            yaml.safe_dump(cfg, f)
+        res = torch_cli.main(["--yaml", ypath, "--platform", "cpu", "--episodes-per-epoch", "2"])
+        assert len(res["step_losses"]) == 1 and np.isfinite(res["step_losses"]).all()
+        first[sampler] = res["step_losses"][0]
+    assert abs(first["matmul"] - first["gather"]) > 1e-6

@@ -14,6 +14,8 @@ gradient error (``test_sgd_step_matches``) into the next loss; the AdamW
 steps therefore run at lr 1e-6, where both packages' losses agree to 1e-4.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -88,3 +90,32 @@ def test_step_with_registration_matches(weights):
     np.testing.assert_allclose(pl, jl, rtol=1e-4)
     param_change_close(port, jstate["params"], weights, 0.2)
     _stats_close(port, jstate["batch_stats"], jstate["params"], 2e-3)
+
+
+def test_step_with_deformable_registration_matches(weights, monkeypatch):
+    """``do_deformable: True``: 4 demons steps after the 8 affine steps, in
+    the gather structure, inside the step (no gradient through the prior).
+    Held as ``test_step_with_registration_matches`` holds the affine prior;
+    the demons moved the prior (the loss differs from the affine-only
+    step's). Both trainers integrate with 4 squarings here: at 10, tracing
+    and compiling the JAX fit under its gradient makes this test a third
+    slower, and the 10-squaring integration is held in
+    ``test_torch_demons.py``."""
+    import rpnet_tpu.train.trainer as jax_trainer
+    import rpnet_tpu_torch.train.trainer as torch_trainer
+    for mod in (jax_trainer, torch_trainer):
+        monkeypatch.setattr(mod, "register_episode",
+                            functools.partial(mod.register_episode, diffeo_scaling=4))
+    cfg = _config(optimizer="sgd", init_lr=1.0, use_registration_loss=True,
+                  do_deformable=True, reg_demons_iters=4)
+    batch = smooth_batch(6)
+    jl, jstate, pl, port = run_both(weights, cfg, [batch])
+    np.testing.assert_allclose(pl, jl, rtol=1e-4)
+    param_change_close(port, jstate["params"], weights, 0.2)
+    _stats_close(port, jstate["batch_stats"], jstate["params"], 2e-3)
+
+    affine_only = _port_model(weights)
+    step = make_train_step(affine_only, dict(cfg, do_deformable=False),
+                           make_optimizer(affine_only.parameters(), cfg))
+    loss = float(step({"step": 0}, tuple(_t(a) for a in batch))["loss"])
+    assert abs(loss - pl[0]) > 1e-4 * abs(loss)
