@@ -14,7 +14,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
   2. kernels — call each kernel's wrapper on the card at the main paths'
      shapes, the eval shape (the first episode's query slices, 64×64,
      C=256, r=5, bf16; and C=512 at 32×32 and 64×64, the VGG and ResNet
-     backbones' eval shapes), the training shape (48 slices, f32) and the
+     backbones' eval shapes), the training shape (48 slices, f32; and
+     C=512 at 32×32 and 64×64, the VGG and ResNet training shapes, forward
+     and backward, timed) and the
      forward's tiling edges in both dtypes (ragged 20×20 and 3×5, W past one
      32- or 64-query strip, C = 16, 48 and 320, r = 1..5), on outputs
      NaN-poisoned, and hold it against its plain PyTorch version: bf16 within
@@ -124,12 +126,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
   5c. deformable training — 2 steps of the train CLI with
      ``do_deformable: True`` (50 demons steps, matmul structure): 5 forward
      and 5 backward launches a step, finite losses, parameters moved;
+  5d. training breadth — the train CLI at full width (the example's
+     training block) for 1 step each (2 for vgg and bfloat16) under
+     ``backbone: vgg`` (scale 8), ``backbone: resnet``, ``mask_feature_map:
+     x2``, ``use_relation_enc: concat``, ``unet_normalize_type: GroupNorm``,
+     ``n_way: 2`` (soft masks), ``compute_dtype: bfloat16`` and a VGG warm
+     start from a seeded torchvision VGG16 state dict (``pretrained_path``):
+     Wa·Sh + 4 forward and backward correlation launches a step (none under
+     concat), each on f32 features, finite losses, the parameters moved (the
+     warm-started encoder within 1e-3 of the state dict), the written
+     checkpoint loading into the eval model of the same config, peak memory
+     logged;
   6. training reference — one full-width train step (E=2, k=2, 64², SGD at
      lr 1 so the change is the gradient) on the card vs on the CPU, f32 with
-     TF32 off: loss within 1e-4 relative, each parameter tensor's change
-     within 3e-2 (norm of the difference over norm of the change; the batch
-     statistics of two 64² slices carry f32 differences in the order of
-     sums into the deep layers' gradients, ~1e-2 measured).
+     TF32 off, for the U-Net, VGG and ResNet backbones and the U-Net under
+     ``compute_dtype: bfloat16`` (soft masks: see ``TRAIN_REFERENCE``): loss
+     within 1e-4 relative, each parameter
+     tensor's change within 3e-2 (norm of the difference over norm of the
+     change; the batch statistics of two 64² slices carry f32 differences in
+     the order of sums into the deep layers' gradients, ~1e-2 measured);
+  3g. trained checkpoint — the train CLI trains a U-Net on the card
+     (``TRAINED_STEPS`` steps of 4 episodes of ``TRAINED_K`` slices, AdamW at
+     ``TRAINED_LR``), then the eval CLI runs phase 3's episodes on it in f32
+     and in bf16: the f32 masks' foreground share above 1%, the fewshot Dice
+     finite (logged beside the prior's), bf16 within 0.01 Dice of f32 at the
+     last iteration and masks agreeing on more than 98% of pixels at every
+     iteration; the phase's seconds logged.
 
 Then it prints the kernel table (a ``kernels`` line and a ``{"kernels":
 ...}`` JSON line), the card's name and power limit from nvidia-smi, and as
@@ -751,6 +773,53 @@ class switched:
                 os.environ[k] = v
 
 
+class tf32_off:
+    """cuDNN's and the matmuls' TF32 off for a block (the card-vs-CPU
+    phases compare f32 with f32), then restored."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+class correlation_dtypes:
+    """The dtypes the training path's correlation wrappers receive in a
+    block (the default route's forward and the backward), as a set of
+    (direction, dtype); the wrappers themselves run and count as always
+    (reset and read their counts outside the block)."""
+
+    def __enter__(self):
+        from rpnet_tpu_torch.ops import correlation as tc
+
+        self.tc, self.fwd = tc, tc.FORWARDS["select"]
+        self.bwd = tc.LocalCorrelation.backward   # the autograd Function's
+        seen, fwd, bwd = set(), self.fwd, self.bwd
+
+        def forward(fm1, fm2, r):
+            seen.add(("forward", str(fm1.dtype).replace("torch.", "")))
+            return fwd(fm1, fm2, r)
+
+        def backward(ctx, g):
+            seen.add(("backward", str(g.dtype).replace("torch.", "")))
+            return bwd(ctx, g)
+
+        tc.FORWARDS["select"] = forward
+        tc.LocalCorrelation.backward = staticmethod(backward)
+        return seen
+
+    def __exit__(self, *exc):
+        self.tc.FORWARDS["select"] = self.fwd
+        self.tc.LocalCorrelation.backward = staticmethod(self.bwd)
+
+
 class recorded_episodes:
     """Every episode's metrics as the CLI settles it (``EpisodeRunner.finalize``
     wrapped: it runs after the episode's own wait, so it adds no sync)."""
@@ -1225,8 +1294,35 @@ def log_device_profile(tag: str, what: str, prof, wall_ms: float):
     return n_ops
 
 
-def phase_train_reference():
-    """One full-width train step on the card vs on the CPU, f32, TF32 off."""
+def bn_cancelled_biases(model):
+    """Biases of the convolutions that feed a batch norm, which cancels
+    them: in exact arithmetic they get no gradient."""
+    import torch
+
+    from rpnet_tpu_torch.models.blocks import BatchNorm2d
+
+    out = set()
+    for name, mod in model.named_modules():
+        kids = list(mod.named_children())
+        for (n1, m1), (_, m2) in zip(kids, kids[1:]):
+            if isinstance(m1, torch.nn.Conv2d) and isinstance(m2, BatchNorm2d):
+                out.add(f"{name}.{n1}.bias" if name else f"{n1}.bias")
+    return out
+
+
+# phase 6: (backbone, compute_dtype) of the card-vs-CPU train step. The
+# bf16 case runs soft masks: on this input its rounded weights put refinement
+# probabilities within card-vs-CPU noise of the hard mask's 0.5 (on the CPU a
+# 1e-5 change of the input moves its hard-mask loss by 1.8e-3, the f32
+# step's by 1e-6), as the CPU parity tests hold multi-iteration steps
+TRAIN_REFERENCE = (("UNet", "float32"), ("vgg", "float32"), ("resnet", "float32"),
+                   ("UNet", "bfloat16"))
+
+
+def phase_train_reference(backbone: str = "UNet", compute_dtype: str = "float32"):
+    """One full-width train step on the card vs on the CPU, f32 activations,
+    TF32 off; under ``compute_dtype: bfloat16`` the parameters rounded for
+    the forward on both."""
     import copy
 
     import numpy as np
@@ -1235,11 +1331,11 @@ def phase_train_reference():
     from rpnet_tpu_torch.models.factory import build_rpnet
     from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = {"mask_refinement_correlation_radius": 5, "n_iter_refinement": 4,
            "use_registration_loss": False, "optimizer": "sgd", "init_lr": 1.0,
-           "weight_decay": 1e-4, "scheduler_step": 0, "loss": "dice_ce"}
+           "weight_decay": 1e-4, "scheduler_step": 0, "loss": "dice_ce",
+           "backbone": backbone, "scale": 8 if backbone == "vgg" else 4,
+           "compute_dtype": compute_dtype, "soft_mask": compute_dtype != "float32"}
     E, k, H = 2, 2, 64
     rng = np.random.RandomState(0)
     yy, xx = np.mgrid[:H, :H] / H
@@ -1256,21 +1352,21 @@ def phase_train_reference():
     for dev in ("cpu", "cuda"):
         model = copy.deepcopy(base).to(dev)
         step = make_train_step(model, cfg, make_optimizer(model.parameters(), cfg))
-        m = step({"step": 0}, [b.to(dev) for b in batch])
-        results[dev] = (float(m["loss"]), {n: p.detach().cpu() for n, p in model.named_parameters()})
+        with tf32_off():
+            m = step({"step": 0}, [b.to(dev) for b in batch])
+            results[dev] = (float(m["loss"]),
+                            {n: p.detach().cpu() for n, p in model.named_parameters()})
     (loss_c, p_c), (loss_g, p_g) = results["cpu"], results["cuda"]
-    # every conv feeds a batch norm, which cancels its bias: those get no
-    # gradient in exact arithmetic and are left out
-    conv_bias = {f"{n}.bias" for n, mod in base.named_modules()
-                 if isinstance(mod, torch.nn.Conv2d)}
+    cancelled = bn_cancelled_biases(base)
     worst = max(float(torch.linalg.vector_norm(p_g[n] - p_c[n])
                       / torch.linalg.vector_norm(p_c[n] - start[n]).clamp_min(1e-12))
-                for n in p_c if n not in conv_bias)
-    log(f"[train-reference] full-width step, E=2 k=2 64² r=5 SGD lr 1: loss card "
-        f"{loss_g:.6f} CPU {loss_c:.6f} (rtol 1e-4); worst parameter change "
-        f"difference {worst:.2e} of the change (3e-2)")
+                for n in p_c if n not in cancelled)
+    log(f"[train-reference] full-width {backbone} {compute_dtype} step, E=2 k=2 64² r=5 SGD "
+        f"lr 1: loss card {loss_g:.6f} CPU {loss_c:.6f} (rtol 1e-4); worst parameter "
+        f"change difference {worst:.2e} of the change (3e-2)")
     if not (abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) and worst <= 3e-2):
-        raise AssertionError("the train step on the card disagrees with the CPU")
+        raise AssertionError(f"the {backbone} {compute_dtype} train step on the card "
+                             "disagrees with the CPU")
 
 
 def phase_reference(backbone: str = "UNet"):
@@ -1280,8 +1376,6 @@ def phase_reference(backbone: str = "UNet"):
 
     from rpnet_tpu_torch.models.factory import build_rpnet
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = {"mask_refinement_correlation_radius": 5, "backbone": backbone,
            "scale": 8 if backbone == "vgg" else 4}
     model = build_rpnet(cfg, num_iter=3, seed=1)
@@ -1294,7 +1388,7 @@ def phase_reference(backbone: str = "UNet"):
     args = [torch.from_numpy(a) for a in
             (img[None, None, ..., None], lab[None, None], 1 - lab[None, None],
              img[..., None], lab)]
-    with torch.no_grad():
+    with torch.no_grad(), tf32_off():
         ref = model(*args)["refinement"]
         out = model.to("cuda")(*[a.cuda() for a in args])["refinement"].cpu()
     err = (out - ref).abs().max().item()
@@ -1680,6 +1774,188 @@ def phase_deformable_training(cfg, default_first_loss: float):
     return launches
 
 
+# phase 5d: training breadth, the train CLI at full width under each setting:
+# (config overrides, steps). The supports are tiled over n_way ways, so the
+# ways' probabilities are equal and never pass 0.5: with hard masks the
+# refinement empties the query mask after the first iteration and the step
+# has no gradient (in the JAX trainer too), hence soft masks under n_way 2
+TRAIN_BREADTH = {"vgg": ({"backbone": "vgg", "scale": 8}, 2),
+                 "resnet": ({"backbone": "resnet", "scale": 4}, 1),
+                 "mask_x2": ({"mask_feature_map": "x2"}, 1),
+                 "concat": ({"use_relation_enc": "concat"}, 1),
+                 "groupnorm": ({"unet_normalize_type": "GroupNorm"}, 1),
+                 "n_way2": ({"n_way": 2, "soft_mask": True}, 1),
+                 "bf16": ({"compute_dtype": "bfloat16"}, 2),
+                 "pretrained_vgg": ({"backbone": "vgg", "scale": 8}, 1)}
+# torchvision VGG16's ``features`` indices of its 13 convolutions
+TORCHVISION_VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def write_torchvision_vgg16(path: str, seed: int):
+    """A torchvision-named VGG16 ``state_dict`` (the 13 ``features`` convs,
+    two ``classifier`` tensors the warm start skips) drawn from ``seed``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd, cin = {}, 3
+    for idx, cout in zip(TORCHVISION_VGG16_CONVS,
+                         [c for n, c in ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+                          for _ in range(n)]):
+        sd[f"features.{idx}.weight"] = torch.randn(cout, cin, 3, 3, generator=gen) * 0.05
+        sd[f"features.{idx}.bias"] = torch.randn(cout, generator=gen) * 0.01
+        cin = cout
+    sd["classifier.0.weight"] = torch.randn(8, 8, generator=gen)
+    sd["classifier.0.bias"] = torch.zeros(8)
+    torch.save(sd, path)
+    return sd
+
+
+def phase_train_breadth(cfg):
+    """Phase 5d: the train CLI at full width under each ``TRAIN_BREADTH``
+    setting: Wa·Sh + n_iter_refinement forward and backward correlation
+    launches a step (none under concat), each on f32 features (under
+    ``compute_dtype: bfloat16`` too), finite losses, the parameters moved,
+    the written checkpoint loads into the eval model of the same config, peak
+    memory logged. The VGG warm start (``pretrained_path``, a seeded
+    torchvision VGG16 state dict) must start the encoder from those weights:
+    after its step they are within 1e-3 of them (AdamW at 1e-5)."""
+    import torch
+    import yaml
+
+    from rpnet_tpu_torch.cli import train as train_cli
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.models.factory import build_rpnet
+    from rpnet_tpu_torch.train.convert import (convert_torchvision_vgg16, load_into,
+                                               load_torch_checkpoint)
+
+    vgg_path = os.path.join(WORK, "torchvision_vgg16.pth")
+    warm = convert_torchvision_vgg16(write_torchvision_vgg16(vgg_path, seed=21))
+    out = {}
+    for label, (kw, steps) in TRAIN_BREADTH.items():
+        vcfg = dict(cfg, out_dir=os.path.join(WORK, f"train_out_{label}"), **kw)
+        if label == "pretrained_vgg":
+            vcfg["pretrained_path"] = vgg_path
+        path = os.path.join(WORK, f"example_train_{label}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(vcfg, f)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with correlation_dtypes() as dtypes:
+            t0 = time.time()
+            res = train_cli.main(["--yaml", path, "--epochs", "1", "--episodes-per-epoch",
+                                  str(steps * int(vcfg["batch_size"]))])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        config = Config(vcfg)
+        per_step = int(config["n_way"]) + int(config["n_iter_refinement"])   # Wa·Sh + T
+        expect = {} if config["use_relation_enc"] == "concat" else {
+            "local_correlation": per_step * steps, "local_correlation_bwd": per_step * steps}
+        ckpt = load_torch_checkpoint(res["checkpoint"])
+        init = build_rpnet(config, seed=int(vcfg.get("seed", 0))).state_dict()
+        moved = sum(1 for k, v in ckpt["state_dict"].items()
+                    if k in init and v.is_floating_point() and not torch.equal(v, init[k]))
+        model = build_rpnet(config, num_iter=config["n_test_iter_refinement"])
+        load_into(model, ckpt["state_dict"])
+        note = ""
+        if label == "pretrained_vgg":
+            off = max(float((ckpt["state_dict"][k] - v).abs().max()) for k, v in warm.items())
+            note = f", encoder convs within {off:.2e} of the warm start (1e-3)"
+            if not off <= 1e-3:
+                raise AssertionError(f"train-{label}: the encoder did not start from "
+                                     f"{vgg_path} ({off})")
+        log(f"[train-{label}] {len(res['step_losses'])} steps: losses {res['step_losses']}, "
+            f"seconds between steps {res['step_seconds']}, peak memory allocated "
+            f"{peak:.2f} GiB, CLI wall {wall:.1f}s, {moved} of {len(init)} tensors moved, "
+            f"launches {launches}, correlation input dtypes {sorted(dtypes)}; the checkpoint "
+            f"loads into the eval model{note}")
+        if expect and dtypes != {("forward", "float32"), ("backward", "float32")}:
+            raise AssertionError(f"train-{label}: the correlation saw {dtypes}; the "
+                                 "training path correlates f32 features")
+        if len(res["step_losses"]) != steps or launches != expect:
+            raise AssertionError(f"train-{label}: {len(res['step_losses'])} steps, launches "
+                                 f"{launches}, expected {expect}")
+        if not all(math.isfinite(v) for v in res["step_losses"]) or moved < len(init) // 2:
+            raise AssertionError(f"train-{label}: losses {res['step_losses']}, {moved} "
+                                 "tensors moved")
+        out[label] = launches
+    return out
+
+
+# phase 3g: a U-Net trained on the card by the train CLI, then evaluated
+TRAINED_STEPS = 120        # batches of TRAINED_K-slice episodes (~0.63 s each)
+TRAINED_K = 4
+TRAINED_LR = 1e-4
+
+
+def phase_trained_eval(train_cfg, eval_cfg):
+    """Phase 3g: train a U-Net with the train CLI on the synthetic train
+    classes (``TRAINED_STEPS`` steps of batch_size 4 episodes of
+    ``TRAINED_K`` slices, AdamW at ``TRAINED_LR``, the example's training
+    block otherwise), then run the eval CLI on phase 3's episodes with that
+    checkpoint in f32 and in bf16: the f32 masks' foreground share of the
+    last iteration above 1%, the f32 fewshot Dice finite (logged beside the
+    prior's), and bf16 against f32 on the card within the bounds of
+    ``tests/test_torch_bf16_eval.py``: last-iteration Dice within 0.01,
+    masks agreeing on more than 98% of pixels at every iteration."""
+    import torch
+    import yaml
+
+    from rpnet_tpu_torch.cli import train as train_cli
+
+    t0 = time.time()
+    tcfg = dict(train_cfg, k=TRAINED_K, init_lr=TRAINED_LR,
+                out_dir=os.path.join(WORK, "train_out_trained"))
+    tpath = os.path.join(WORK, "example_train_trained.yml")
+    with open(tpath, "w") as f:
+        yaml.safe_dump(tcfg, f)
+    res = train_cli.main(["--yaml", tpath, "--epochs", "1", "--episodes-per-epoch",
+                          str(TRAINED_STEPS * int(tcfg["batch_size"]))])
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    losses = res["step_losses"]
+    if len(losses) != TRAINED_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"trained: {len(losses)} steps, losses {losses[:5]}...")
+    log(f"[trained] {len(losses)} steps (k={TRAINED_K}, lr {TRAINED_LR}) in {t_train:.1f}s: "
+        f"mean loss of the first and last 10 steps {sum(losses[:10]) / 10:.4f} -> "
+        f"{sum(losses[-10:]) / 10:.4f}, {res['checkpoint']}")
+
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        path = os.path.join(WORK, f"eval_trained_{dtype}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(dict(eval_cfg, ckpt=res["checkpoint"], compute_dtype=dtype,
+                                out_dir=os.path.join(WORK, f"out_trained_{dtype}")), f)
+        results, launches, (masks, _), _ = run_eval_cli(path)
+        runs[dtype] = (results, masks)
+        r = next(iter(results["classes"].values()))
+        log(f"[trained-eval-{dtype}] {results['episodes']} episodes: mean dice affine "
+            f"(prior) {r['affine'][0]:.4f}, fewshot {r['fewshot'][0]:.4f}, by iteration "
+            f"{[round(v[0], 4) for v in r['refinement'].values()]}, launches {launches}")
+    (r32, m32), (r16, m16) = runs["float32"], runs["bfloat16"]
+    # masks: one (iterations, slices, H, W) tensor per episode
+    fg = sum(float(m[-1].float().sum()) for m in m32) / sum(m[-1].numel() for m in m32)
+    agree = [sum(int((a[i] == b[i]).sum()) for a, b in zip(m32, m16))
+             / sum(a[i].numel() for a in m32) for i in range(m32[0].shape[0])]
+    c32, c16 = (next(iter(r["classes"].values())) for r in (r32, r16))
+    last = len(c32["refinement"]) - 1     # [mean, std over runs] per iteration
+    d32, d16 = c32["refinement"][last][0], c16["refinement"][last][0]
+    log(f"[trained-eval] foreground share of the f32 masks (last iteration) {fg:.4f} "
+        f"(> 0.01); f32 fewshot Dice {c32['fewshot'][0]:.4f} beside the prior's "
+        f"{c32['affine'][0]:.4f}; "
+        f"last-iteration mean Dice f32 {d32:.4f}, bf16 {d16:.4f} (|diff| < 0.01); masks "
+        f"agree per iteration {[round(a, 5) for a in agree]} (> 0.98); phase took "
+        f"{time.time() - t0:.1f}s")
+    if not (fg > 0.01 and all(math.isfinite(v) for v in c32["fewshot"])):
+        raise AssertionError(f"trained checkpoint: foreground share {fg}, fewshot "
+                             f"{c32['fewshot']}")
+    if not (abs(d32 - d16) < 0.01 and min(agree) > 0.98):
+        raise AssertionError(f"bf16 vs f32 on the trained checkpoint: Dice {d16} vs "
+                             f"{d32}, agreement {agree}")
+    return t_train
+
+
 def gpu_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1687,6 +1963,9 @@ def gpu_line() -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {proc.stderr}")
     return proc.stdout.strip().splitlines()[0]
+
+
+T_START = time.time()
 
 
 def main() -> int:
@@ -1729,6 +2008,14 @@ def main() -> int:
     train_shape = (4 * int(cfg["k"]), 64, 64, 256)    # E·k slices of the train step
     train_fwd = check_local_corr(train_shape, 5, f32, seed=6, timed=True)
     train_bwd = check_local_corr_bwd(train_shape, 5, f32, seed=7, timed=True)
+    # rows 4 and 7 at the training breadth backbones' shapes (phase 5d): 512
+    # channels, two 256-channel groups / blocks, VGG's 1/8 and ResNet's 1/4
+    wide_train = {}
+    for i, (name, hw) in enumerate((("vgg", 32), ("resnet", 64))):
+        shape = (4 * int(cfg["k"]), hw, hw, 512)
+        wide_train[name] = {
+            "forward": check_local_corr(shape, 5, f32, seed=90 + 2 * i, timed=True),
+            "backward": check_local_corr_bwd(shape, 5, f32, seed=91 + 2 * i, timed=True)}
     check_local_corr_bwd(train_shape, 5, f32, seed=8, timed=False, strided=False)
     check_local_corr_bwd(train_shape, 5, bf16, seed=9, timed=False)
     # the backward's tiling edges (4-row x 32-query x 256-channel blocks,
@@ -1783,8 +2070,19 @@ def main() -> int:
     train_res, train_launches, _ = phase_training(train_yaml, train_cfg)
     switch_launches = phase_train_switches(train_cfg, train_res["step_losses"][0])
     train_deform_launches = phase_deformable_training(train_cfg, train_res["step_losses"][0])
+    t0 = time.time()
+    breadth_train_launches = phase_train_breadth(train_cfg)
+    t_5d = time.time() - t0
     profile_train_step(train_cfg)
-    phase_train_reference()
+    t0 = time.time()
+    for backbone, compute_dtype in TRAIN_REFERENCE:
+        phase_train_reference(backbone, compute_dtype)
+    t_6 = time.time() - t0
+    t0 = time.time()
+    phase_trained_eval(train_cfg, cfg)
+    log(f"[phases] seconds: 5d training breadth {t_5d:.1f}, 6 training reference "
+        f"({len(TRAIN_REFERENCE)} steps) {t_6:.1f}, 3g trained checkpoint "
+        f"{time.time() - t0:.1f}; the script so far {time.time() - T_START:.1f}")
 
     def entry(name, source, replaces, res, n_launches, **extra):
         """``replaces``: a line of rpnet_tpu/ops/pallas/correlation.py, or
@@ -1811,7 +2109,8 @@ def main() -> int:
                  **{f"breadth-{k}": v for k, v in breadth_launches.items()},
                  **{f"deform-{k}": v for k, v in deform_launches.items()},
                  "eval3d": eval3d_launches}
-    train_runs = {"train": train_launches, "train-deform": train_deform_launches}
+    train_runs = {"train": train_launches, "train-deform": train_deform_launches,
+                  **{f"train-{k}": v for k, v in breadth_train_launches.items()}}
     kernels = [
         entry("local_correlation", "local_corr.cu", 289, main_case,
               launches["local_correlation"],
@@ -1819,10 +2118,13 @@ def main() -> int:
               wide_shapes=wide),
         entry("local_correlation_train_forward", "local_corr.cu", 36, train_fwd,
               train_launches["local_correlation"],
-              launches_by_run={k: v["local_correlation"] for k, v in train_runs.items()}),
+              launches_by_run={k: v.get("local_correlation", 0) for k, v in train_runs.items()},
+              wide_shapes={k: v["forward"] for k, v in wide_train.items()}),
         entry("local_correlation_bwd", "local_corr_bwd.cu", 776, train_bwd,
               train_launches["local_correlation_bwd"],
-              launches_by_run={k: v["local_correlation_bwd"] for k, v in train_runs.items()}),
+              launches_by_run={k: v.get("local_correlation_bwd", 0)
+                               for k, v in train_runs.items()},
+              wide_shapes={k: v["backward"] for k, v in wide_train.items()}),
         entry("local_correlation_band", "local_corr_band.cu", 122, variant["band"],
               opt_in("local_correlation_band")),
         entry("local_correlation_pdot", "local_corr_band.cu", 289, variant["pdot"],

@@ -9,13 +9,24 @@ episode order per epoch), runs the train step (``train/trainer.py``),
 prints the per-epoch loss line in the JAX CLI's format, tees stdout to
 ``out_dir/log_train`` (and restores it on return), and saves
 ``out_dir/model/epoch_NNN.pth`` every ``epoch_save`` epochs. ``ckpt:``
-resumes from such a file (or a reference ``.pth``).
+resumes from such a file (or a reference ``.pth``). ``pretrained_path``
+warm-starts the fresh model before that (``rpnet_tpu/train/checkpoint.py:
+124-155``): with ``backbone: vgg`` a torchvision VGG16 ``state_dict`` fills
+the encoder's 13 convolutions in order (``train/convert.
+convert_torchvision_vgg16``), with any other backbone a full RP_Net ``.pth``
+is loaded onto the model (``train/convert.load_into``). The epoch's mean
+loss goes to TensorBoard as ``train/loss`` under ``out_dir/runs`` where
+``tensorboard`` is installed, as the JAX CLI writes it; without it the run
+trains all the same and says so.
 
 It runs on the GPU (``--platform gpu``, the default) and raises when there
 is none; ``--platform cpu`` runs on the CPU with the kernels' plain versions.
-float32 on the GPU turns TF32 off for cuDNN and matmuls, as the eval runner
-does. Not ported yet (ROADMAP.md): LGCANet_V3 training, ``pretrained_path``
-warm starts, TensorBoard scalars, n_way > 1 and bfloat16 training.
+Training leaves cuDNN's convolutions at torch's default precision (TF32 on
+the card), as the JAX package leaves its f32 convolutions at XLA's default:
+over 100 steps of the example's training block the windowed loss means of
+TF32 and full f32 agree within 0.6% (``tools/train_precision_ab.py``); the
+demons blur keeps f32 (``registration/gaussian.no_tf32``). Not ported yet
+(ROADMAP.md): LGCANet_V3 training.
 """
 
 from __future__ import annotations
@@ -35,7 +46,9 @@ from rpnet_tpu_torch.config import Config, load_yaml
 from rpnet_tpu_torch.episode.sampler import EpisodeSampler
 from rpnet_tpu_torch.models.factory import build_rpnet
 from rpnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
-from rpnet_tpu_torch.train.trainer import check_ported, make_optimizer, make_train_step
+from rpnet_tpu_torch.train.convert import (convert_torchvision_vgg16, load_into,
+                                           load_torch_checkpoint)
+from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
 from rpnet_tpu_torch.utils.logger import Logger
 
 parser = argparse.ArgumentParser(description="RP-Net training (PyTorch)")
@@ -80,13 +93,41 @@ def collate_batch(episodes, target_k: int = None) -> tuple:
 
 
 def _check_ported(config: Config) -> None:
-    check_ported(config)
     if config.get("net", "RP_Net") != "RP_Net":
         raise NotImplementedError("rpnet_tpu_torch trains RP_Net only "
                                   "(LGCANet_V3 is not ported yet)")
-    if config.get("pretrained_path"):
-        raise NotImplementedError("pretrained_path warm starts are not ported "
-                                  "yet (resume with ckpt: instead)")
+
+
+def apply_pretrained(model, config: Config) -> None:
+    """The ``pretrained_path`` warm start (``rpnet_tpu/train/checkpoint.py:
+    124-155``): a torchvision VGG16 checkpoint into the VGG encoder's
+    convolutions, positionally; with another backbone a full RP_Net
+    ``.pth`` onto the whole model."""
+    path = config.get("pretrained_path")
+    if not path:
+        return
+    backbone = config["backbone"]
+    if backbone == "vgg":
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        sd = raw.get("state_dict", raw) if isinstance(raw, dict) else raw
+        model.load_state_dict(convert_torchvision_vgg16(sd), strict=False)
+        print(f"[vgg warm start from {path}]")
+        return
+    load_into(model, load_torch_checkpoint(path)["state_dict"])
+    print(f"[{backbone} warm start from {path}]")
+
+
+def summary_writer(out_dir: str):
+    """TensorBoard's writer under ``out_dir/runs``, or None where
+    ``tensorboard`` is not installed (``rpnet_tpu/cli/train.py:247-250``)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        print(f"[tensorboard not available ({e}); train/loss is not written]")
+        return None
+    runs = os.path.join(out_dir, "runs")
+    print(f"[tensorboard: train/loss per epoch under {runs}]")
+    return SummaryWriter(runs)
 
 
 def main(argv=None):
@@ -109,13 +150,13 @@ def main(argv=None):
     logger = Logger(os.path.join(out_dir, "log_train"))
     sys.stdout = logger
     try:
-        return train(config, args, device, model_dir, seed)
+        return train(config, args, device, out_dir, seed)
     finally:
         sys.stdout = logger.terminal
         logger.close()
 
 
-def train(config: Config, args, device, model_dir: str, seed: int) -> Dict:
+def train(config: Config, args, device, out_dir: str, seed: int) -> Dict:
     """The epoch loop; returns per-step losses, the seconds between
     successive steps' losses (from the second step on), the host seconds
     spent assembling each batch, epoch losses and the last checkpoint."""
@@ -130,12 +171,9 @@ def train(config: Config, args, device, model_dir: str, seed: int) -> Dict:
     steps_per_epoch = max(1, -(-epi_per_epoch // batch_size))
     k = int(config.get("k", 12))
 
-    if device.type == "cuda":
-        # float32 means float32 (the only training dtype ported)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     model = build_rpnet(config, num_iter=config["n_iter_refinement"], seed=seed,
                         device=device, align=True)
+    apply_pretrained(model, config)
     optimizer = make_optimizer(model.parameters(), config, steps_per_epoch)
     state = {"step": 0}
     start_epoch = 0
@@ -145,6 +183,7 @@ def train(config: Config, args, device, model_dir: str, seed: int) -> Dict:
                                          steps_per_epoch)
         state["step"] = start_epoch * steps_per_epoch
     train_step = make_train_step(model, config, optimizer)
+    writer = summary_writer(out_dir)
 
     def to_device(a):
         return torch.from_numpy(a).to(device, non_blocking=True)
@@ -152,48 +191,54 @@ def train(config: Config, args, device, model_dir: str, seed: int) -> Dict:
     results: Dict[str, List] = {"step_losses": [], "step_seconds": [],
                                 "data_seconds": [], "epoch_losses": [],
                                 "checkpoint": None}
-    order = list(range(len(sampler)))
-    t_last = None
-    for epoch in range(start_epoch, epochs):
-        random.shuffle(order)
-        t0 = time.time()
-        losses: List[float] = []
-        idx = 0
-        pending = None   # the last step's metrics, still on the device
+    try:
+        order = list(range(len(sampler)))
+        t_last = None
+        for epoch in range(start_epoch, epochs):
+            random.shuffle(order)
+            t0 = time.time()
+            losses: List[float] = []
+            idx = 0
+            pending = None   # the last step's metrics, still on the device
 
-        def fetch():
-            nonlocal t_last
-            losses.append(float(pending["loss"]))   # waits for that step
-            now = time.perf_counter()
-            if t_last is not None:
-                results["step_seconds"].append(now - t_last)
-            t_last = now
+            def fetch():
+                nonlocal t_last
+                losses.append(float(pending["loss"]))   # waits for that step
+                now = time.perf_counter()
+                if t_last is not None:
+                    results["step_seconds"].append(now - t_last)
+                t_last = now
 
-        while idx < epi_per_epoch:
-            # assemble the next batch while the device runs the previous step
-            # (the JAX CLI's order); reading the loss is the wait
-            t_data = time.perf_counter()
-            take = [order[(idx + j) % len(order)] for j in range(batch_size)]
-            episodes = [sampler.sample(t) for t in take]
-            batch = collate_batch(episodes, target_k=k)
-            results["data_seconds"].append(time.perf_counter() - t_data)
+            while idx < epi_per_epoch:
+                # assemble the next batch while the device runs the previous step
+                # (the JAX CLI's order); reading the loss is the wait
+                t_data = time.perf_counter()
+                take = [order[(idx + j) % len(order)] for j in range(batch_size)]
+                episodes = [sampler.sample(t) for t in take]
+                batch = collate_batch(episodes, target_k=k)
+                results["data_seconds"].append(time.perf_counter() - t_data)
+                if pending is not None:
+                    fetch()
+                pending = train_step(state, tuple(map(to_device, batch)))
+                idx += batch_size
             if pending is not None:
                 fetch()
-            pending = train_step(state, tuple(map(to_device, batch)))
-            idx += batch_size
-        if pending is not None:
-            fetch()
-        wall = time.time() - t0
-        mean_loss = float(np.mean(losses)) if losses else float("nan")
-        print(f"epoch {epoch} loss {mean_loss:.4f} "
-              f"({epi_per_epoch / max(wall, 1e-9):.2f} episodes/s)")
-        results["step_losses"] += losses
-        results["epoch_losses"].append(mean_loss)
-        if (epoch + 1) % epoch_save == 0:
-            # epoch = completed epochs (epoch + 1): a resume starts at the next
-            results["checkpoint"] = save_checkpoint(
-                os.path.join(model_dir, f"epoch_{epoch:03d}.pth"), epoch + 1,
-                model, optimizer)
+            wall = time.time() - t0
+            mean_loss = float(np.mean(losses)) if losses else float("nan")
+            print(f"epoch {epoch} loss {mean_loss:.4f} "
+                  f"({epi_per_epoch / max(wall, 1e-9):.2f} episodes/s)")
+            results["step_losses"] += losses
+            results["epoch_losses"].append(mean_loss)
+            if writer is not None:
+                writer.add_scalar("train/loss", mean_loss, epoch)
+            if (epoch + 1) % epoch_save == 0:
+                # epoch = completed epochs (epoch + 1): a resume starts at the next
+                results["checkpoint"] = save_checkpoint(
+                    os.path.join(out_dir, "model", f"epoch_{epoch:03d}.pth"), epoch + 1,
+                    model, optimizer)
+    finally:
+        if writer is not None:
+            writer.close()
     return results
 
 

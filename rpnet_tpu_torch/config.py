@@ -57,7 +57,7 @@ _DEFAULTS: Dict[str, Any] = {
     "unet_normalize_type": "BatchNorm2d",
     "mask_feature_map": "no",  # U-Net mask injection: x, x2, x3, x5 or no
     "use_relation_enc": "relation",  # relation | concat
-    "pretrained_path": None,   # not ported (raises when set)
+    "pretrained_path": None,   # train CLI warm start (VGG16 or a full RP_Net .pth)
     # --- refinement (net/rp_net.py:201, :281-312; example.yml:107-110) ---
     "n_iter_refinement": 4,
     "n_test_iter_refinement": 10,

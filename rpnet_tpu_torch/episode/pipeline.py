@@ -125,10 +125,9 @@ class EpisodeRunner:
     def __init__(self, model, config, device):
         self.device = torch.device(device)
         self.max_slices = int(config.get("max_slices", 288))
+        # f32 leaves cuDNN's convolutions at torch's default (TF32), as the
+        # JAX package leaves its f32 ones at XLA's default precision
         compute_dtype = getattr(torch, config.get("compute_dtype") or "bfloat16")
-        if compute_dtype == torch.float32 and self.device.type == "cuda":
-            # f32 means f32: cuDNN convolutions default to TF32
-            torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(device=self.device, dtype=compute_dtype).eval()
         self.fn = episode_metrics_fn(
             self.model, int(config.get("reg_affine_iters", 50)),

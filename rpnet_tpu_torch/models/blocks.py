@@ -3,16 +3,31 @@
 The port keeps the JAX package's (N, H, W, C) layout at every module
 boundary. Convolutions and batch norms view their input as NCHW with
 ``x.permute(0, 3, 1, 2)``, which for a contiguous NHWC tensor is a
-``torch.channels_last`` NCHW tensor: cuDNN runs on it without a copy and
-returns channels-last output, which the inverse permute turns back into a
-contiguous NHWC tensor. Parameters keep torch's OIHW layout and the upstream
-RP-Net ``state_dict`` names (``conv.0``, ``conv.1``, ``up.1``, ...).
+``torch.channels_last`` NCHW tensor: cuDNN's tensor-core algorithms (bf16,
+and f32 with TF32, torch's default) run on it without a copy and return
+channels-last output, which the inverse permute turns back into a
+contiguous NHWC tensor. cuDNN transposes internally where its algorithm
+needs NCHW: its f32 algorithms without TF32 (FFT, FFMA implicit GEMM) and
+the first convolution's 1-channel input (``nhwcToNchwKernel``; measured in
+a training step with ``tools/train_precision_ab.py``). Parameters keep
+torch's OIHW layout and the upstream RP-Net ``state_dict`` names
+(``conv.0``, ``conv.1``, ``up.1``, ...).
+
+The U-Net's norms are chosen by ``unet_normalize_type``, as the JAX
+``Norm2d`` chooses them (``rpnet_tpu/models/blocks.py:62-82``):
+:class:`BatchNorm2d`, :class:`InstanceNorm2d` (no parameters) or
+:class:`GroupNorm` (8 groups, scale and bias), each in the upstream
+``nn.Sequential``'s norm slot (``conv.1``, ``conv.4``, ``up.2``).
 
 BatchNorm in training mode follows the JAX package (flax ``nn.BatchNorm``
 under the trainer's episode vmap), not ``torch.nn.BatchNorm2d``: batch
 statistics are taken per episode (``groups`` leading blocks of the batch
 axis), the running variance takes the biased batch variance, and the new
 running statistics are the mean over episodes of the per-episode updates.
+Below f32 (the trainer's ``compute_dtype``) the JAX step casts the running
+statistics once, as it enters the step: each batch norm's first update of
+the step starts from the rounded statistics (``cast_stats``, set by
+:func:`cast_statistics` before each step), later ones in f32.
 
 Initialization: torch's own defaults (Conv2d kaiming_uniform(a=√5), bias
 U(±1/√fan_in); BatchNorm2d ones/zeros, running stats 0/1), or kaiming-normal
@@ -66,6 +81,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     """
 
     groups = 1   # episodes in the batch axis (set by RPNet's training forward)
+    cast_stats = None   # dtype of the step's cast, until the first update (cast_statistics)
 
     def forward(self, x):
         if not self.training:
@@ -81,14 +97,60 @@ class BatchNorm2d(nn.BatchNorm2d):
         stat_dtype = torch.promote_types(x.dtype, torch.float32)
         var, mean = torch.var_mean(xg.to(stat_dtype), dim=1, correction=0)   # (E, C)
         with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(mean.mean(0), alpha=m)
-            self.running_var.mul_(1 - m).add_(var.mean(0), alpha=m)
+            cast, self.cast_stats = self.cast_stats, None
+            self._update_running(self.running_mean, mean.mean(0), cast)
+            self._update_running(self.running_var, var.mean(0), cast)
             self.num_batches_tracked += 1
         mul = self.weight * torch.rsqrt(var + self.eps)                # (E, C)
         shift = self.bias - mean * mul
         y = xg * mul[:, None].to(x.dtype) + shift[:, None].to(x.dtype)
         return y.reshape(N, H, W, C)
+
+    def _update_running(self, running, batch, cast=None):
+        """``running`` ← (1 − momentum)·running + momentum·batch. With
+        ``cast``, flax's ``momentum * ra`` on the statistic the JAX step cast
+        to that dtype (``rpnet_tpu/train/trainer.py:160-162``): the old value
+        and the factor rounded to it (0.9 → 0.8984375 in bf16), their product
+        and the sum in f32, as XLA computes the jitted step (it keeps the
+        product's bf16 rounding out)."""
+        m = self.momentum
+        if cast is None:
+            running.mul_(1 - m).add_(batch, alpha=m)
+            return
+        decay = float(torch.tensor(1 - m, dtype=cast))
+        running.copy_(running.to(cast).to(running.dtype) * decay + m * batch)
+
+
+class InstanceNorm2d(nn.Module):
+    """``unet_normalize_type: InstanceNorm2d`` on (N, H, W, C) tensors:
+    torch's default, no affine, eps 1e-5, each sample and channel normalized
+    by its own mean and biased variance over H and W, as the JAX ``Norm2d``
+    computes it (``rpnet_tpu/models/blocks.py:74-78``). No parameters."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_features, self.eps = num_features, eps
+
+    def forward(self, x):
+        var, mean = torch.var_mean(x, dim=(1, 2), keepdim=True, correction=0)
+        return (x - mean) * torch.rsqrt(var + self.eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``unet_normalize_type: GroupNorm`` on (N, H, W, C) tensors: flax's
+    ``nn.GroupNorm(num_groups=8, epsilon=1e-5)`` (``rpnet_tpu/models/
+    blocks.py:79-80``), a per-channel scale and bias (``weight``,
+    ``bias``), no running statistics."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(8, num_features, eps=eps)
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+NORMS = {"BatchNorm2d": BatchNorm2d, "InstanceNorm2d": InstanceNorm2d,
+         "GroupNorm": GroupNorm}
 
 
 def set_episode_groups(module: nn.Module, groups: int) -> None:
@@ -99,6 +161,15 @@ def set_episode_groups(module: nn.Module, groups: int) -> None:
             m.groups = groups
 
 
+def cast_statistics(module: nn.Module, dtype) -> None:
+    """Round the running statistics of every BatchNorm2d under ``module`` to
+    ``dtype`` where its next update reads them, as the JAX train step's cast
+    at its start does."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.cast_stats = dtype
+
+
 class UpsampleNearest2x(nn.Module):
     """``nn.Upsample(scale_factor=2)`` on (N, H, W, C) tensors."""
 
@@ -106,29 +177,32 @@ class UpsampleNearest2x(nn.Module):
         return upsample_nearest2x(x)
 
 
-def conv_bn_relu(cin: int, cout: int, k: int = 3) -> list:
-    """[conv k×k "SAME", BatchNorm2d, ReLU] — the upstream Sequential pieces."""
-    return [Conv2d(cin, cout, k, padding=k // 2), BatchNorm2d(cout), nn.ReLU()]
+def conv_bn_relu(cin: int, cout: int, k: int = 3, norm: str = "BatchNorm2d") -> list:
+    """[conv k×k "SAME", norm (``NORMS``), ReLU] — the upstream Sequential
+    pieces."""
+    if norm not in NORMS:
+        raise NotImplementedError(f"unet_normalize_type {norm!r}: {', '.join(NORMS)}")
+    return [Conv2d(cin, cout, k, padding=k // 2), NORMS[norm](cout), nn.ReLU()]
 
 
 class ConvBlock(nn.Module):
-    """conv3x3+BN+ReLU ×2 (conv_block, net/modules.py:42-58)."""
+    """conv3x3+norm+ReLU ×2 (conv_block, net/modules.py:42-58)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, norm: str = "BatchNorm2d"):
         super().__init__()
-        self.conv = nn.Sequential(*conv_bn_relu(cin, cout),
-                                  *conv_bn_relu(cout, cout))
+        self.conv = nn.Sequential(*conv_bn_relu(cin, cout, norm=norm),
+                                  *conv_bn_relu(cout, cout, norm=norm))
 
     def forward(self, x):
         return self.conv(x)
 
 
 class UpConv(nn.Module):
-    """nearest ×2 upsample + conv3x3 + BN + ReLU (up_conv, net/modules.py:61-75)."""
+    """nearest ×2 upsample + conv3x3 + norm + ReLU (up_conv, net/modules.py:61-75)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, norm: str = "BatchNorm2d"):
         super().__init__()
-        self.up = nn.Sequential(UpsampleNearest2x(), *conv_bn_relu(cin, cout))
+        self.up = nn.Sequential(UpsampleNearest2x(), *conv_bn_relu(cin, cout, norm=norm))
 
     def forward(self, x):
         return self.up(x)

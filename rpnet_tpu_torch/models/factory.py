@@ -3,10 +3,12 @@
 The counterpart of ``rpnet_tpu/models/factory.py::build_rpnet``, for eval
 and (with ``align`` and ``num_iter``) training; the trainer switches the
 model to training mode. Backbones ``UNet`` (with ``mask_feature_map``),
-``vgg`` and ``resnet``; relation modes ``relation`` and ``concat``;
-BatchNorm2d. A plain dict takes :class:`~rpnet_tpu_torch.config.Config`'s
-defaults, where ``scale`` is 8 for ``vgg`` (features at 1/8) and 4
-otherwise, as the JAX factory's default is.
+``vgg`` and ``resnet``; relation modes ``relation`` and ``concat``; the
+U-Net's ``unet_normalize_type`` BatchNorm2d, InstanceNorm2d or GroupNorm
+(the JAX ``Norm2d``'s kinds; others raise there and here). A plain dict
+takes :class:`~rpnet_tpu_torch.config.Config`'s defaults, where ``scale``
+is 8 for ``vgg`` (features at 1/8) and 4 otherwise, as the JAX factory's
+default is.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from rpnet_tpu_torch.config import Config
 from rpnet_tpu_torch.models.blocks import init_
 from rpnet_tpu_torch.models.rpnet import RPNet
 
-_PORTED = {"net": ("RP_Net",), "unet_normalize_type": ("BatchNorm2d",)}
+_PORTED = {"net": ("RP_Net",)}
 
 
 def build_rpnet(config, num_iter: int | None = None, seed: int = 0,
@@ -41,6 +43,7 @@ def build_rpnet(config, num_iter: int | None = None, seed: int = 0,
         backbone=config["backbone"],
         mask_feature_map=config["mask_feature_map"],
         use_relation_enc=config["use_relation_enc"],
+        norm=config["unet_normalize_type"],
     )
     init_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -105,7 +105,8 @@ class RPNet(nn.Module):
 
     def __init__(self, scale: int = 4, num_iter: int = 10, radius: int = 5,
                  soft_mask: bool = False, align: bool = True, backbone: str = "UNet",
-                 mask_feature_map="no", use_relation_enc: str = "relation"):
+                 mask_feature_map="no", use_relation_enc: str = "relation",
+                 norm: str = "BatchNorm2d"):
         super().__init__()
         self.scale = scale
         self.num_iter = num_iter
@@ -114,7 +115,7 @@ class RPNet(nn.Module):
         self.backbone = backbone
         self.use_relation_enc = use_relation_enc
         if backbone == "UNet":
-            self.encoder = UNet(mask_feature_map=mask_feature_map)
+            self.encoder = UNet(mask_feature_map=mask_feature_map, norm=norm)
         elif backbone == "vgg":
             self.encoder = VGGEncoder()
         elif backbone == "resnet":

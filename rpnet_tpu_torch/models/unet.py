@@ -9,7 +9,8 @@ channel of a level's first conv (net/unet.py:401-424, :435-450): ``x`` the
 full-resolution mask before ``Conv1``, ``x2``/``x3``/``x5`` the mask
 avg-pooled to that level before ``Conv2``/``Conv3``/``Conv5``; any other
 value injects nothing (the JAX module names ``x4`` but injects nothing
-there). ``model.train()`` puts its batch norms in the JAX package's
+there). ``norm`` is ``unet_normalize_type`` (``models/blocks.NORMS``).
+``model.train()`` puts its batch norms in the JAX package's
 batch-statistics mode (``models/blocks.BatchNorm2d``).
 """
 
@@ -32,22 +33,22 @@ class UNet(nn.Module):
 
     out_channels = FEATS[2]
 
-    def __init__(self, in_ch: int = 1, mask_feature_map="no"):
+    def __init__(self, in_ch: int = 1, mask_feature_map="no", norm: str = "BatchNorm2d"):
         super().__init__()
         f = FEATS
         self.mask_level, self.mask_pool = MASK_LEVELS.get(mask_feature_map, (0, 1))
         cin = [in_ch, f[0], f[1], f[2], f[3]]
         if self.mask_level:
             cin[self.mask_level - 1] += 1
-        self.Conv1 = ConvBlock(cin[0], f[0])
-        self.Conv2 = ConvBlock(cin[1], f[1])
-        self.Conv3 = ConvBlock(cin[2], f[2])
-        self.Conv4 = ConvBlock(cin[3], f[3])
-        self.Conv5 = ConvBlock(cin[4], f[4])
-        self.Up5 = UpConv(f[4], f[3])
-        self.Up_conv5 = ConvBlock(f[4], f[3])
-        self.Up4 = UpConv(f[3], f[2])
-        self.Up_conv4 = ConvBlock(f[3], f[2])
+        self.Conv1 = ConvBlock(cin[0], f[0], norm)
+        self.Conv2 = ConvBlock(cin[1], f[1], norm)
+        self.Conv3 = ConvBlock(cin[2], f[2], norm)
+        self.Conv4 = ConvBlock(cin[3], f[3], norm)
+        self.Conv5 = ConvBlock(cin[4], f[4], norm)
+        self.Up5 = UpConv(f[4], f[3], norm)
+        self.Up_conv5 = ConvBlock(f[4], f[3], norm)
+        self.Up4 = UpConv(f[3], f[2], norm)
+        self.Up_conv4 = ConvBlock(f[3], f[2], norm)
 
     def forward(self, x, mask=None):
         def level(i, a):

@@ -10,6 +10,15 @@ mode's ``sim_cat.proj.0``/``.1`` (conv, BN) have no upstream names (upstream
 never defines the module) and the JAX converter does not map them; the
 bridge carries them from the JAX tree's ``sim_cat`` all the same. A
 mask-injected U-Net's widened first conv of its level keeps its name.
+
+The U-Net's ``unet_normalize_type`` norms sit in the batch norm's slot: a
+GroupNorm's flax ``gn`` scale and bias become that slot's ``weight`` and
+``bias`` (no running statistics), an InstanceNorm2d has no tensors. The
+JAX ``convert_state_dict`` maps batch norms only, and the port adds no
+``.pth`` mapping of its own for GroupNorm.
+
+:func:`convert_torchvision_vgg16` is the ``pretrained_path`` warm start of
+the VGG backbone (``rpnet_tpu/train/convert.py:327-355``).
 """
 
 from __future__ import annotations
@@ -102,11 +111,16 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if "bias" in _sub(params, path + ("conv",)):   # ResNet's are bias-free
                 sd[f"{prefix}.bias"] = _t(_get(params, path + ("conv", "bias")))
         else:
-            sd[f"{prefix}.weight"] = _t(_get(params, path + ("bn", "scale")))
-            sd[f"{prefix}.bias"] = _t(_get(params, path + ("bn", "bias")))
-            sd[f"{prefix}.running_mean"] = _t(_get(stats, path + ("bn", "mean")))
-            sd[f"{prefix}.running_var"] = _t(_get(stats, path + ("bn", "var")))
-            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+            norm = _sub(params, path[:-1]).get(path[-1], {})   # {} for InstanceNorm
+            if "gn" in norm:
+                sd[f"{prefix}.weight"] = _t(_get(params, path + ("gn", "scale")))
+                sd[f"{prefix}.bias"] = _t(_get(params, path + ("gn", "bias")))
+            elif "bn" in norm:
+                sd[f"{prefix}.weight"] = _t(_get(params, path + ("bn", "scale")))
+                sd[f"{prefix}.bias"] = _t(_get(params, path + ("bn", "bias")))
+                sd[f"{prefix}.running_mean"] = _t(_get(stats, path + ("bn", "mean")))
+                sd[f"{prefix}.running_var"] = _t(_get(stats, path + ("bn", "var")))
+                sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     if "cre" not in params:
         return sd
     corr = _get(params, ("cre", "q_conv_corr", "conv", "kernel"))
@@ -114,6 +128,30 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd["cre.q.0.weight"] = _t(np.transpose(np.concatenate([corr, fm], axis=2),
                                            (3, 2, 0, 1)))
     sd["cre.q.0.bias"] = _t(_get(params, ("cre", "q_conv_fm", "conv", "bias")))
+    return sd
+
+
+def convert_torchvision_vgg16(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A torchvision VGG16 ``state_dict`` (``features.N.weight`` / ``.bias``)
+    → the VGG encoder's convolutions (``encoder.features.{2s}.{2j}``), as
+    the reference's positional 26-tensor partial load (net/vgg.py:65-74):
+    the first 13 conv (weight, bias) pairs in ``features`` index order fill
+    the five stages in order. The counterpart of the JAX package's
+    ``convert_torchvision_vgg16`` (``rpnet_tpu/train/convert.py:327-355``),
+    which returns the same tensors as a flax tree."""
+    def index(key):
+        return int(key.split(".")[1]) if key.startswith("features.") else 10 ** 6
+
+    convs = [(state_dict[k], state_dict[k[:-len(".weight")] + ".bias"])
+             for k in sorted(state_dict, key=index)
+             if k.startswith("features.") and k.endswith(".weight")
+             and k[:-len(".weight")] + ".bias" in state_dict]
+    targets = [f"encoder.features.{2 * s}.{2 * j}"
+               for s, n in enumerate(_VGG_STAGES) for j in range(n)]
+    sd: Dict[str, torch.Tensor] = {}
+    for name, (w, b) in zip(targets, convs):
+        sd[f"{name}.weight"] = torch.as_tensor(w, dtype=torch.float32)
+        sd[f"{name}.bias"] = torch.as_tensor(b, dtype=torch.float32)
     return sd
 
 

@@ -16,7 +16,18 @@ The counterpart of ``rpnet_tpu/train/trainer.py:46-218``:
     as in the JAX step; ``use_registration_loss: False`` feeds the raw
     support. The port's fit samples with ``F.grid_sample``, the values of
     the JAX fit's ``reg_sampler: gather``; its default ``matmul`` form
-    agrees to the Dice level (ROADMAP.md).
+    agrees to the Dice level (ROADMAP.md);
+  * ``n_way`` > 1 tiles the support and its mask over the ways
+    (``rpnet_tpu/train/trainer.py:149-155``): 1 + n_way output channels, the
+    eval layout;
+  * ``compute_dtype`` below f32 (bfloat16, float16) keeps the f32
+    parameters as the master copy and rounds them to that dtype for each
+    step's forward through a differentiable cast, and the batch norms'
+    running statistics where each one's first update of the step reads them
+    (``trainer.py:156-162``, ``models/blocks.py``); activations stay f32, so
+    every convolution and the correlation compute in f32 with rounded
+    weights, as flax's promoting ``nn.Conv``/``nn.BatchNorm`` do. Gradients
+    come back through the cast (rounded to the dtype, then widened).
 
 The JAX step vmaps one episode's loss over E episodes. Here the E episodes
 are folded into the slice axis of one forward (the correlation kernels
@@ -32,6 +43,7 @@ from typing import Callable, Dict
 
 import torch
 
+from rpnet_tpu_torch.models.blocks import cast_statistics
 from rpnet_tpu_torch.models.losses import make_seg_loss
 from rpnet_tpu_torch.registration.fit import register_episode
 
@@ -81,24 +93,6 @@ def fast_forward_optimizer(optimizer: torch.optim.Optimizer, n_updates: int) -> 
                 }
 
 
-def check_ported(config) -> None:
-    mfm = config.get("mask_feature_map", "no")
-    for key, val, ok in (("backbone", config.get("backbone", "UNet"), "UNet"),
-                         ("mask_feature_map", "no" if mfm is False else mfm, "no"),
-                         ("use_relation_enc", config.get("use_relation_enc", "relation"),
-                          "relation")):
-        if val != ok:
-            raise NotImplementedError(
-                f"{key}: {val!r} training is not ported to rpnet_tpu_torch yet "
-                f"(eval only; training takes {ok!r}; ROADMAP.md queue 1 item 3)")
-    if int(config.get("n_way", 1)) > 1:
-        raise NotImplementedError("n_way > 1 training is not ported to "
-                                  "rpnet_tpu_torch yet (ROADMAP.md)")
-    if (config.get("compute_dtype") or "float32") != "float32":
-        raise NotImplementedError(f"compute_dtype {config.get('compute_dtype')!r} "
-                                  "training is not ported yet (float32 only)")
-
-
 def make_train_step(model, config, optimizer) -> Callable:
     """The train step ``step(state, batch) → metrics``.
 
@@ -107,7 +101,6 @@ def make_train_step(model, config, optimizer) -> Callable:
     and qry_img, qry_lab (E, k, H, W); labels may be uint8. Metrics are
     0-d tensors: loss, seg_loss and align_loss, each the mean over episodes.
     """
-    check_ported(config)
     affine_iters = int(config.get("reg_affine_iters", 50))
     demons_iters = (int(config.get("reg_demons_iters", 50))
                     if config.get("do_deformable", False) else 0)
@@ -120,6 +113,20 @@ def make_train_step(model, config, optimizer) -> Callable:
     deep_supervision = bool(config.get("deep_supervision", False))
     ds_weights = str(config.get("deep_supervision_weights", "equal"))
     seg_loss = make_seg_loss(config.get("loss", "dice_ce"))
+    n_way = int(config.get("n_way", 1))
+    compute_dtype = getattr(torch, str(config.get("compute_dtype") or "float32"))
+    rounded = compute_dtype.itemsize < 4
+
+    def forward(*args):
+        """The training forward; below f32 each f32 parameter rounded to
+        ``compute_dtype`` through a differentiable cast, and the running
+        statistics as the step's first update of each reads them."""
+        if not rounded:
+            return model(*args)
+        cast_statistics(model, compute_dtype)
+        params = {n: p.to(compute_dtype).to(p.dtype) if p.dtype == torch.float32 else p
+                  for n, p in model.named_parameters()}
+        return torch.func.functional_call(model, params, args)
 
     def prior(supp_img, supp_lab, qry_img):
         """(registration prior, network support image, its label), shot 0."""
@@ -148,7 +155,10 @@ def make_train_step(model, config, optimizer) -> Callable:
         model.train()
         supp_t = supp_in[:, None, None, ..., None]        # (E, 1, 1, k, H, W, 1)
         fore_t = fore[:, None, None]
-        out = model(supp_t, fore_t, 1.0 - fore_t, qry_img[..., None], appr)
+        if n_way > 1:   # the support tiled over the ways: (E, n_way, 1, k, ...)
+            supp_t = supp_t.expand(-1, n_way, *supp_t.shape[2:])
+            fore_t = fore_t.expand(-1, n_way, *fore_t.shape[2:])
+        out = forward(supp_t, fore_t, 1.0 - fore_t, qry_img[..., None], appr)
         if deep_supervision:
             # every refinement iteration supervised (mean or linear weights)
             per_iter = torch.stack([episode_losses(lg, qry_lab)

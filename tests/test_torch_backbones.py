@@ -44,22 +44,14 @@ from rpnet_tpu_torch.models.rpnet import RPNet
 from rpnet_tpu_torch.models.unet import UNet
 from rpnet_tpu_torch.models.vgg import VGGEncoder
 from rpnet_tpu_torch.train.convert import load_into, state_dict_from_jax
-from rpnet_tpu_torch.train.trainer import check_ported
+from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
 
 from test_torch_models import episode_inputs
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 H = 64
 MOVES = 50   # a mutation must move the outputs by this many tolerances
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two torch threads: the shapes are small, and the suite runs several
-    workers on one machine (more threads than cores make every op slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def random_variables(module, *args, seed: int = 0, **kw):
@@ -258,7 +250,20 @@ def test_factory_scale_and_checkpoint_shapes():
 @pytest.mark.parametrize("key,val", [("backbone", "vgg"), ("backbone", "resnet"),
                                      ("mask_feature_map", "x2"),
                                      ("use_relation_enc", "concat")])
-def test_training_refuses_eval_only_modes(key, val):
-    check_ported({"mask_feature_map": False})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_ported({key: val})
+def test_training_takes_the_eval_breadth_modes(key, val):
+    """Each eval breadth mode trains: the train step builds and takes one
+    finite step on a tiny batch that moves the parameters (the step is held
+    against the JAX trainer in ``test_torch_train_breadth.py``)."""
+    cfg = {key: val, "mask_refinement_correlation_radius": 1, "n_iter_refinement": 1,
+           "use_registration_loss": False, "optimizer": "sgd", "init_lr": 1e-2,
+           "scheduler_step": 0}
+    model = build_rpnet(cfg, num_iter=1)
+    before = [p.detach().clone() for p in model.parameters()]
+    step = make_train_step(model, cfg, make_optimizer(model.parameters(), cfg))
+    rng = np.random.RandomState(0)
+    lab = (rng.rand(1, 1, 1, 32, 32) > 0.5).astype(np.float32)
+    batch = (rng.randn(1, 1, 1, 32, 32).astype(np.float32), lab,
+             rng.randn(1, 1, 32, 32).astype(np.float32), lab[:, 0])
+    loss = float(step({"step": 0}, tuple(_t(a) for a in batch))["loss"])
+    assert np.isfinite(loss)
+    assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))

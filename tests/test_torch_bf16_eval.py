@@ -35,6 +35,8 @@ from rpnet_tpu_torch.ops.sampling import interpolate_bilinear
 from rpnet_tpu_torch.train.convert import state_dict_from_jax
 from test_torch_models import episode_inputs, jax_rpnet
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 B, H, R, ITERS = 2, 64, 5, 3
 # per-iteration mask agreement and last-iteration Dice Δ: see module doc
 MIN_AGREE = 0.98

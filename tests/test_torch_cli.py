@@ -4,10 +4,12 @@ The JAX CLI (``reg_sampler: gather``, its torch-exact fit) and the port's CLI
 (``--platform cpu``) run the same YAML with ``compute_dtype: float32``:
 the same seed draws the same supports, so the per-episode log lines agree
 in everything but the last digits, and the per-class affine, fewshot and
-per-iteration Dice of ``results_eval.json`` agree within 1e-3. Both on the
-host data path (``device_volume_cache: 0``, ``num_workers: 0``) and on the
-defaults (a device volume cache of 16 and index-only episodes; 4 prefetch
-workers, unused while the cache is on).
+per-iteration Dice of ``results_eval.json`` agree within 1e-3. The port
+runs on the host data path (``device_volume_cache: 0``, ``num_workers:
+0``) and on the defaults (a device volume cache of 16 and index-only
+episodes; 4 prefetch workers, unused while the cache is on), each held
+against one run of the JAX CLI (its episodes and Dice do not depend on the
+data path), and the two paths print the same lines.
 """
 
 import json
@@ -24,7 +26,12 @@ from rpnet_tpu.core.synthetic import generate_dataset
 from rpnet_tpu_torch.cli import test_rpnet as torch_cli
 from rpnet_tpu_torch.train.convert import state_dict_from_jax
 
-from test_torch_models import jax_rpnet
+from test_torch_models import jax_rpnet, tensorboard_without_tensorflow  # noqa: F401
+
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
+# every CLI run of this module writes TensorBoard without TensorFlow
+pytestmark = pytest.mark.usefixtures("tensorboard_without_tensorflow")
 
 _FLOAT = re.compile(r"-?\d+\.\d+(e-?\d+)?")
 
@@ -56,32 +63,48 @@ def _episode_lines(path):
     return [_FLOAT.sub("#", l) for l in keep]
 
 
-@pytest.mark.parametrize("data_path", [dict(device_volume_cache=0, num_workers=0), {}],
-                         ids=["num_workers=0", "defaults"])
-def test_cli_parity(tmp_path, data_path):
-    paths = generate_dataset(str(tmp_path / "data"), n_train=3, n_test=3,
+DATA_PATHS = {"num_workers=0": dict(device_volume_cache=0, num_workers=0), "defaults": {}}
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    """One dataset and ``.pth``, one run of the JAX CLI, and the port's CLI
+    on a data path (run once each, on demand) → (results, JSON, lines)."""
+    tmp = tmp_path_factory.mktemp("cli")
+    paths = generate_dataset(str(tmp / "data"), n_train=3, n_test=3,
                              shape=(20, 48, 48), seed=0)
     _, variables = jax_rpnet(radius=2, num_iter=2, size=32, seed=3)
-    ckpt = str(tmp_path / "shared.pth")
+    ckpt = str(tmp / "shared.pth")
     torch.save({"epoch": 0, "state_dict": state_dict_from_jax(variables)}, ckpt)
+    runs = {}
 
-    results = {}
-    for name, cli, extra, kw in (
-            ("jax", jax_cli, [], dict(reg_sampler="gather")),
-            ("torch", torch_cli, ["--platform", "cpu"], {})):
-        out = str(tmp_path / name)
-        ypath = str(tmp_path / f"{name}.yml")
-        with open(ypath, "w") as f:
-            yaml.safe_dump(_config(paths, out, ckpt, **kw, **data_path), f)
-        stdout = sys.stdout
-        try:
-            results[name] = cli.main(["--yaml", ypath] + extra)
-        finally:
-            sys.stdout = stdout   # the JAX CLI leaves its log tee installed
-        with open(f"{out}/results_eval.json") as f:
-            results[name + "_json"] = json.load(f)
+    def run(name, cli, extra, **kw):
+        if name not in runs:
+            out = str(tmp / name)
+            ypath = str(tmp / f"{name}.yml")
+            with open(ypath, "w") as f:
+                yaml.safe_dump(_config(paths, out, ckpt, **kw), f)
+            stdout = sys.stdout
+            try:
+                res = cli.main(["--yaml", ypath] + extra)
+            finally:
+                sys.stdout = stdout   # the JAX CLI leaves its log tee installed
+            assert sys.stdout is stdout
+            with open(f"{out}/results_eval.json") as f:
+                runs[name] = (res, json.load(f), _episode_lines(f"{out}/log_eval"))
+        return runs[name]
 
-    j, t = results["jax_json"], results["torch_json"]
+    def port(data_path):
+        return run(f"torch_{data_path}", torch_cli, ["--platform", "cpu"],
+                   **DATA_PATHS[data_path])
+
+    return run("jax", jax_cli, [], reg_sampler="gather"), port
+
+
+@pytest.mark.parametrize("data_path", list(DATA_PATHS))
+def test_cli_parity(cli_runs, data_path):
+    (_, j, jl), port = cli_runs
+    _, t, tl = port(data_path)
     assert set(t) >= {"classes", "wall_time_sec", "episodes", "failed_episodes",
                       "episodes_per_sec"}
     assert t["episodes"] == j["episodes"] == 3
@@ -94,13 +117,13 @@ def test_cli_parity(tmp_path, data_path):
         np.testing.assert_allclose(tc["refinement"][it], jc["refinement"][it],
                                    atol=1e-3, err_msg=f"ref {it}")
 
-    jl = _episode_lines(str(tmp_path / "jax" / "log_eval"))
-    tl = _episode_lines(str(tmp_path / "torch" / "log_eval"))
     assert len(jl) == 6   # 3 episodes; the pass and aggregate class lines; ref line
     assert tl == jl
+    if data_path == "defaults":   # the port's two data paths print the same lines
+        assert tl == port("num_workers=0")[2]
 
 
-def test_deformable_eval_matches_jax(tmp_path, capsys, request, monkeypatch):
+def test_deformable_eval_matches_jax(tmp_path, capsys, monkeypatch):
     """``do_deformable: True`` (4 demons steps). The gather structure: the
     JAX CLI's ``evaluate`` on a JAX runner built directly (its ``main``
     spends ~25 s initializing a model on the host) against the port's CLI
@@ -123,9 +146,6 @@ def test_deformable_eval_matches_jax(tmp_path, capsys, request, monkeypatch):
     from rpnet_tpu.episode.pipeline import EpisodeRunner as JaxEpisodeRunner
     from rpnet_tpu.episode.sampler import EpisodeSampler as JaxEpisodeSampler
 
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)   # small shapes; the suite runs several workers
-    request.addfinalizer(lambda: torch.set_num_threads(threads))
     for mod in (jax_pipeline, torch_pipeline):
         monkeypatch.setattr(mod, "register_episode",
                             functools.partial(mod.register_episode, diffeo_scaling=4))

@@ -13,6 +13,8 @@ from rpnet_tpu_torch.train.convert import (load_into, load_torch_checkpoint,
 
 from test_torch_models import jax_rpnet
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 
 @pytest.fixture(scope="module")
 def jax_variables():

@@ -37,6 +37,8 @@ import torch
 from rpnet_tpu.ops.pallas import correlation as pc
 from rpnet_tpu_torch.ops import correlation as tc
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 QR = 4       # query rows a block (one per warp of a warpgroup)
 SUB = 16     # queries a sub-strip (one consumer warpgroup)
 NB = 32      # source columns a product (16 + 2r <= 32)

@@ -24,6 +24,8 @@ import torch
 from rpnet_tpu_torch.ops.correlation import (correlation_scale,
                                              local_correlation_bwd_plain)
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 QT = 8   # queries a tile (the MMA's N)
 
 

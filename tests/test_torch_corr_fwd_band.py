@@ -32,6 +32,8 @@ from rpnet_tpu.ops.pallas.correlation import local_correlation_pallas
 from rpnet_tpu_torch.ops.correlation import (correlation_scale,
                                              local_correlation_plain)
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 QR = 4       # query rows a block (one per warp of a warpgroup)
 SUB = 16     # queries a sub-strip (one consumer warpgroup)
 NSUB = 2     # sub-strips a block

@@ -23,6 +23,8 @@ import torch
 from rpnet_tpu_torch.bench_tools import corr_sweep as port_sweep
 from rpnet_tpu_torch.ops.correlation import local_correlation_plain
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE, R = (2, 16, 16, 64), 3
 

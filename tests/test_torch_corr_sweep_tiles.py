@@ -46,6 +46,8 @@ import torch
 from rpnet_tpu_torch.bench_tools import corr_sweep as port_sweep
 from rpnet_tpu_torch.ops import correlation as tc
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QR = 4       # query rows a block (one per warp of a warpgroup)
 SUB = 16     # queries a sub-strip (one consumer warpgroup)

@@ -40,8 +40,10 @@ from rpnet_tpu_torch.ops import correlation as tc
 from rpnet_tpu_torch.train.convert import state_dict_from_jax
 
 from test_torch_models import jax_rpnet
-from test_torch_train import _config, param_change_close, run_both, smooth_batch
+from test_torch_train import _config, param_change_close, run_jax, run_port, smooth_batch
 from test_torch_train import weights  # noqa: F401 — module fixture
+
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
 
 ENV = ("RPNET_CORR_IMPL", "RPNET_ROT_EXTRACT", "RPNET_ROT_PACK")
 
@@ -411,8 +413,16 @@ def test_cre_matches_jax_under_switch(monkeypatch, cre_pair, env, shape, dtype):
 
 # --------------------------------------------------------------- training
 
+@pytest.fixture(scope="module")
+def jax_sgd_step(weights):  # noqa: F811
+    """The JAX trainer's SGD step, once for every switch: its correlation is
+    its XLA formulation on the CPU whatever the port's switch."""
+    cfg = _config(optimizer="sgd", init_lr=1.0, momentum=0.9)
+    return cfg, run_jax(weights, cfg, [smooth_batch(2)])
+
+
 @pytest.mark.parametrize("impl", ["pallas_mxu", "csub"])
-def test_sgd_step_matches_under_switch(monkeypatch, weights, impl):  # noqa: F811
+def test_sgd_step_matches_under_switch(monkeypatch, weights, jax_sgd_step, impl):  # noqa: F811
     """One SGD step at lr 1 (``test_torch_train.test_sgd_step_matches``'s
     tolerances: loss 1e-4 relative, each tensor's change 10%) with the
     port's CRE on the band / csub forward; the JAX trainer's correlation is
@@ -422,8 +432,8 @@ def test_sgd_step_matches_under_switch(monkeypatch, weights, impl):  # noqa: F81
     real = port_cre.correlation_route
     monkeypatch.setattr(port_cre, "correlation_route",
                         lambda *a: seen.append(real(*a)) or seen[-1])
-    cfg = _config(optimizer="sgd", init_lr=1.0, momentum=0.9)
-    jl, jstate, pl, port = run_both(weights, cfg, [smooth_batch(2)])
+    cfg, (jl, jstate) = jax_sgd_step
+    pl, port = run_port(weights, cfg, [smooth_batch(2)])
     assert set(seen) == {"band" if impl == "pallas_mxu" else "csub"}
     np.testing.assert_allclose(pl, jl, rtol=1e-4)
     param_change_close(port, jstate["params"], weights, 0.1)

@@ -32,6 +32,8 @@ from rpnet_tpu_torch.ops.correlation import (local_correlation,
                                              local_correlation_plain,
                                              local_correlation_trainable)
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -168,9 +170,9 @@ def test_bwd_plain_matches_jax_vjp(r):
     """Both input gradients vs jax.vjp of the JAX package's local_correlation,
     f32 (atol 1e-5: sums over d² shifts in another order)."""
     f1, f2, g = _grad_inputs(20 + r, r)
-    _, vjp = jax.vjp(lambda a, b: jax_local_correlation(a, b, r),
-                     jnp.asarray(f1), jnp.asarray(f2))
-    ref1, ref2 = vjp(jnp.asarray(g))
+    # jitted: one compile instead of an eager dispatch per shifted product
+    ref1, ref2 = jax.jit(lambda a, b, ct: jax.vjp(
+        lambda x, y: jax_local_correlation(x, y, r), a, b)[1](ct))(f1, f2, g)
     d1, d2 = local_correlation_bwd_plain(torch.from_numpy(g), torch.from_numpy(f1),
                                          torch.from_numpy(f2), r)
     assert d1.dtype == d2.dtype == torch.float32

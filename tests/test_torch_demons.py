@@ -53,15 +53,9 @@ from rpnet_tpu_torch.registration.fit import register_episode
 
 from test_torch_registration import registration_inputs
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 AFFINE, DEMONS, SCALING = 50, 8, 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

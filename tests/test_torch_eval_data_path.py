@@ -35,20 +35,12 @@ from rpnet_tpu_torch.episode.prefetch import EpisodeFailure, PrefetchingSampler
 from rpnet_tpu_torch.episode.sampler import EpisodeSampler
 from rpnet_tpu_torch.models.factory import build_rpnet
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 PATHS = {"spec": dict(device_volume_cache=16, num_workers=0),
          "spec_lru1": dict(device_volume_cache=1, num_workers=0),
          "prefetch": dict(device_volume_cache=0, num_workers=2),
          "plain": dict(device_volume_cache=0, num_workers=0)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two torch threads: the shapes are small, and the suite runs several
-    workers on one machine (more threads than cores make every op slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

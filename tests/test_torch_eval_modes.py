@@ -34,20 +34,12 @@ from rpnet_tpu_torch.train.convert import state_dict_from_jax
 
 from test_torch_models import episode_inputs, jax_rpnet
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 H = 32
 MODES = {"no_registration": dict(use_registration=False),
          "multishot": dict(multishot=True),
          "n_way": dict(n_way=2)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two torch threads: the shapes are small, and the suite runs several
-    workers on one machine (more threads than cores make every op slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

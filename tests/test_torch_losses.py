@@ -16,6 +16,8 @@ import torch
 from rpnet_tpu.models import losses as J
 from rpnet_tpu_torch.models import losses as P
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 
 def _grad_pair(jfn, pfn, x, *rest):
     """(value, d value / d x) from both packages for x and fixed ``rest``."""

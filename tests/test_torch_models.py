@@ -10,6 +10,9 @@ feed the flip back into later iterations).
 Also home of the helpers the other port tests share.
 """
 
+import sys
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,25 @@ import torch
 from rpnet_tpu.models.rpnet import RPNet as JaxRPNet
 from rpnet_tpu_torch.models.rpnet import RPNet
 from rpnet_tpu_torch.train.convert import state_dict_from_jax
+
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
+
+@pytest.fixture(scope="module")
+def tensorboard_without_tensorflow():
+    """TensorBoard without TensorFlow for a module's CLI runs. The JAX CLIs
+    (and the port's train CLI) open a ``SummaryWriter``, whose first write
+    imports the installed TensorFlow (~14 s alone, more under the suite's
+    workers) unless ``tensorboard.compat.notf`` is importable; with it they
+    write the same event files through TensorBoard's own stub. The choice
+    is made once per process."""
+    key = "tensorboard.compat.notf"
+    added = key not in sys.modules
+    if added:
+        sys.modules[key] = types.ModuleType(key)
+    yield
+    if added:
+        sys.modules.pop(key, None)
 
 
 def randomize_norms(variables, seed: int):

@@ -28,6 +28,8 @@ from rpnet_tpu.registration.fit import register_episode as jax_register_episode
 from rpnet_tpu_torch.core.metrics import dice, ncc
 from rpnet_tpu_torch.registration.fit import register_episode
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 
 def registration_inputs(B: int, H: int, seed: int):
     """Smooth support/query slices in [-1, 1] with offset organs; labels."""

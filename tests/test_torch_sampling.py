@@ -10,6 +10,8 @@ import torch
 from rpnet_tpu.ops import sampling as J
 from rpnet_tpu_torch.ops import sampling as T
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 
 def _both(fn_j, fn_t, *arrays, **kw):
     out_j = np.asarray(fn_j(*[jnp.asarray(a) for a in arrays], **kw))

@@ -37,6 +37,8 @@ from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
 
 from test_torch_models import jax_rpnet
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 E, K, H, R, T = 2, 2, 32, 2, 2
 
 
@@ -96,6 +98,16 @@ def smooth_batch(seed: int, k: int = K, size: int = H):
 def weights():
     _, variables = jax_rpnet(radius=R, num_iter=T, size=H, seed=5)
     return variables
+
+
+def with_radius(variables, r: int):
+    """``variables`` for a CRE of radius ``r``: the same weights, the q
+    conv's kernel over the correlation cut to its first (2r+1)² input
+    channels (no second JAX init to compile)."""
+    out = jax.tree_util.tree_map(np.array, variables)
+    q = out["params"]["cre"]["q_conv_corr"]["conv"]
+    q["kernel"] = np.ascontiguousarray(q["kernel"][:, :, :(2 * r + 1) ** 2])
+    return out
 
 
 def _jax_model(num_iter=T, soft_mask=True, radius=R):
@@ -162,9 +174,9 @@ def _config(**kw):
     return cfg
 
 
-def run_both(variables, cfg, batches, steps_per_epoch=1, x64=False):
-    """The same train steps in both packages, in f32 or (``x64``) f64.
-    Returns (JAX losses, JAX state as numpy, port losses, port model)."""
+def run_jax(variables, cfg, batches, steps_per_epoch=1, x64=False):
+    """The JAX package's train steps in f32 or (``x64``) f64 → (losses, the
+    state as numpy)."""
     fdt = np.float64 if x64 else np.float32
     r = cfg["mask_refinement_correlation_radius"]
     cast = lambda tree: jax.tree_util.tree_map(lambda a: np.asarray(a, fdt), tree)
@@ -179,8 +191,13 @@ def run_both(variables, cfg, batches, steps_per_epoch=1, x64=False):
         for b in batches:
             state, m = step(state, tuple(jnp.asarray(a.astype(fdt)) for a in b))
             jl.append(float(m["loss"]))
-        state = jax.tree_util.tree_map(np.asarray, state)
+        return jl, jax.tree_util.tree_map(np.asarray, state)
 
+
+def run_port(variables, cfg, batches, steps_per_epoch=1, x64=False):
+    """The port's train steps on the same weights → (losses, the model)."""
+    fdt = np.float64 if x64 else np.float32
+    r = cfg["mask_refinement_correlation_radius"]
     port = _port_model(variables, radius=r).to(torch.float64 if x64 else torch.float32)
     port_step = make_train_step(port, cfg, make_optimizer(port.parameters(), cfg,
                                                           steps_per_epoch))
@@ -188,6 +205,14 @@ def run_both(variables, cfg, batches, steps_per_epoch=1, x64=False):
     pl = [float(port_step(pstate, tuple(_t(a.astype(fdt)) for a in b))["loss"])
           for b in batches]
     assert pstate["step"] == len(batches)
+    return pl, port
+
+
+def run_both(variables, cfg, batches, steps_per_epoch=1, x64=False):
+    """The same train steps in both packages, in f32 or (``x64``) f64.
+    Returns (JAX losses, JAX state as numpy, port losses, port model)."""
+    jl, state = run_jax(variables, cfg, batches, steps_per_epoch, x64)
+    pl, port = run_port(variables, cfg, batches, steps_per_epoch, x64)
     return jl, state, pl, port
 
 
@@ -227,7 +252,7 @@ def test_sgd_step_matches(weights, radius):
     ``test_torch_train_steps.py::test_gradients_match_in_f64`` holds the
     gradients to 1e-5."""
     if radius != R:
-        weights = jax_rpnet(radius=radius, num_iter=T, size=H, seed=5)[1]
+        weights = with_radius(weights, radius)
     cfg = _config(optimizer="sgd", init_lr=1.0, momentum=0.9,
                   mask_refinement_correlation_radius=radius)
     jl, jstate, pl, port = run_both(weights, cfg, [smooth_batch(2)])

@@ -1,7 +1,8 @@
 """Both train CLIs end to end on one synthetic dataset and one ``.pth``.
 
 The JAX CLI and the port's (``--platform cpu``) train one epoch of 2 steps
-(batch_size 2, k=2, 32², U-Net d4, r=2, 2 soft-mask refinement iterations,
+(batch_size 2, k=2, 32², U-Net d4, r=2, 1 soft-mask refinement iteration
+(the JAX CLI unrolls the refinement, so each one adds to its compile),
 AdamW at the example's lr 1e-5, gamma jitter on, no registration prior —
 ``test_torch_train_steps.py`` covers the step with it) from the same
 JAX-initialized weights written as a ``.pth`` (``ckpt:``). The same seed
@@ -10,12 +11,15 @@ relative (the step's f32 gradients differ by a few percent at these tiny
 batches, ``test_torch_train.py::test_sgd_step_matches``, which moves the
 second step's loss by less than that at lr 1e-5). The port's checkpoint
 converts back through the JAX package's ``convert_state_dict`` and resumes
-the port's CLI at the next epoch.
+the port's CLI at the next epoch. The port's ``pretrained_path`` warm
+starts and its TensorBoard scalar are held here too: the JAX CLI has
+already imported TensorBoard (and the TensorFlow it finds) in this worker.
 """
 
 import re
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -27,7 +31,12 @@ from rpnet_tpu.train.convert import convert_state_dict
 from rpnet_tpu_torch.cli import train as torch_cli
 from rpnet_tpu_torch.train.convert import state_dict_from_jax
 
-from test_torch_models import jax_rpnet
+from test_torch_models import jax_rpnet, tensorboard_without_tensorflow  # noqa: F401
+
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
+# every CLI run of this module writes TensorBoard without TensorFlow
+pytestmark = pytest.mark.usefixtures("tensorboard_without_tensorflow")
 
 _EPOCH = re.compile(r"^epoch (\d+) loss (\S+) \(")
 
@@ -66,7 +75,7 @@ def test_train_cli_parity(tmp_path):
         out = str(tmp_path / name)
         ypath = str(tmp_path / f"{name}.yml")
         with open(ypath, "w") as f:
-            yaml.safe_dump(_config(paths, out, ckpt), f)
+            yaml.safe_dump(dict(_config(paths, out, ckpt), n_iter_refinement=1), f)
         stdout = sys.stdout
         try:
             results[name] = cli.main(["--yaml", ypath, "--episodes-per-epoch", "4"] + extra)
@@ -93,8 +102,8 @@ def test_train_cli_parity(tmp_path):
         if not k.endswith("num_batches_tracked"):
             np.testing.assert_array_equal(v.numpy(), saved["state_dict"][k].numpy(), err_msg=k)
 
-    cfg = _config(paths, str(tmp_path / "resume"), res["checkpoint"])
-    cfg["epochs"] = 2
+    cfg = dict(_config(paths, str(tmp_path / "resume"), res["checkpoint"]),
+               n_iter_refinement=1, epochs=2)
     ypath = str(tmp_path / "resume.yml")
     with open(ypath, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -104,6 +113,64 @@ def test_train_cli_parity(tmp_path):
     assert len(resumed["step_losses"]) == 2 and resumed["checkpoint"].endswith("epoch_001.pth")
 
 
+def _cli_config(paths, out_dir, **kw):
+    cfg = dict(_config(paths, out_dir, None), n_iter_refinement=1,
+               mask_refinement_correlation_radius=1, epochs=1)
+    cfg.update(kw)
+    return cfg
+
+
+@pytest.mark.parametrize("backbone", ["vgg", "UNet"])
+def test_train_cli_pretrained_path_and_tensorboard(tmp_path, monkeypatch, backbone):
+    """The port's train CLI with ``pretrained_path``: a seeded torchvision
+    VGG16 state dict for ``backbone: vgg`` (the encoder's 13 convs), a full
+    RP_Net ``.pth`` for the U-Net; the first step starts from those weights
+    (the model the step sees carries them), and the epoch's loss is written
+    to TensorBoard under ``out_dir/runs``."""
+    from rpnet_tpu_torch.models.factory import build_rpnet
+    from rpnet_tpu_torch.train.convert import convert_torchvision_vgg16
+
+    from test_torch_train_breadth import torchvision_vgg16
+
+    dataset = generate_dataset(str(tmp_path / "data"), n_train=2, n_test=1,
+                               shape=(16, 48, 48), seed=0)
+    if backbone == "vgg":
+        warm = tmp_path / "vgg16.pth"
+        torch.save(torchvision_vgg16(2), warm)
+        expect = convert_torchvision_vgg16(torchvision_vgg16(2))
+        kw = dict(backbone="vgg", scale=8)
+    else:
+        warm = tmp_path / "rpnet.pth"
+        kw = dict(backbone="UNet", scale=4)
+        source = build_rpnet(_cli_config(dataset, "", **kw), num_iter=1, seed=11)
+        torch.save({"epoch": 3, "state_dict": source.state_dict()}, warm)
+        expect = source.state_dict()
+    seen = {}
+    real = torch_cli.make_train_step
+
+    def spy(model, config, optimizer):   # the weights the first step starts from
+        seen.update({k: v.clone() for k, v in model.state_dict().items()})
+        return real(model, config, optimizer)
+
+    monkeypatch.setattr(torch_cli, "make_train_step", spy)
+    out = tmp_path / "out"
+    ypath = tmp_path / "cfg.yml"
+    with open(ypath, "w") as f:
+        yaml.safe_dump(_cli_config(dataset, str(out), pretrained_path=str(warm), **kw), f)
+    res = torch_cli.main(["--yaml", str(ypath), "--platform", "cpu",
+                          "--episodes-per-epoch", "2"])
+    assert len(res["step_losses"]) == 1 and np.isfinite(res["step_losses"]).all()
+    for k, v in expect.items():
+        if v.is_floating_point():
+            assert torch.equal(seen[k], v), k
+    with open(out / "log_train") as f:
+        log = f.read()
+    assert f"[{'vgg' if backbone == 'vgg' else 'UNet'} warm start from {warm}]" in log
+    assert "[tensorboard: train/loss per epoch under" in log
+    events = list((out / "runs").glob("events.out.tfevents.*"))
+    assert len(events) == 1 and events[0].stat().st_size > 0
+
+
 def test_train_cli_refuses_to_fall_back_to_cpu(tmp_path, monkeypatch):
     """--platform gpu (the default) raises without a GPU; never a CPU run."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -111,19 +178,40 @@ def test_train_cli_refuses_to_fall_back_to_cpu(tmp_path, monkeypatch):
         torch_cli.main(["--yaml", str(tmp_path / "unused.yml")])
 
 
-@pytest.mark.parametrize("key,value", [("n_way", 2), ("compute_dtype", "bfloat16"),
-                                       ("backbone", "vgg")])
-def test_train_step_refuses_what_is_not_ported(key, value):
+@pytest.mark.parametrize("key,value", [("net", "LGCANet_V3"),
+                                       ("unet_normalize_type", "LayerNorm"),
+                                       ("optimizer", "rmsprop")])
+def test_train_step_refuses_what_is_not_ported(key, value, tmp_path):
+    """What the port's training still refuses: LGCANet_V3 in the train CLI
+    (not ported yet; the JAX CLI trains it), and what the JAX package
+    refuses too: a ``unet_normalize_type`` its ``Norm2d`` does not know and
+    an optimizer its ``make_optimizer`` does not know."""
+    from rpnet_tpu.models.blocks import Norm2d
+    from rpnet_tpu.train.trainer import make_optimizer as jax_make_optimizer
     from rpnet_tpu_torch.models.factory import build_rpnet
-    from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
+    from rpnet_tpu_torch.train.trainer import make_optimizer
 
-    model = build_rpnet({"mask_refinement_correlation_radius": 1}, num_iter=1)
     cfg = {key: value}
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, cfg, make_optimizer(model.parameters(), cfg))
+    if key == "net":
+        ypath = str(tmp_path / "lgca.yml")
+        with open(ypath, "w") as f:
+            yaml.safe_dump(dict(cfg, out_dir=str(tmp_path / "out")), f)
+        with pytest.raises(NotImplementedError, match="LGCANet_V3"):
+            torch_cli.main(["--yaml", ypath, "--platform", "cpu"])
+    elif key == "unet_normalize_type":
+        with pytest.raises(NotImplementedError, match="LayerNorm"):
+            Norm2d(value).init(jax.random.PRNGKey(0), np.zeros((1, 4, 4, 8), np.float32))
+        with pytest.raises(NotImplementedError, match="LayerNorm"):
+            build_rpnet(cfg, num_iter=1)
+    else:
+        with pytest.raises(NotImplementedError, match="rmsprop"):
+            jax_make_optimizer(cfg)
+        model = build_rpnet({"mask_refinement_correlation_radius": 1}, num_iter=1)
+        with pytest.raises(NotImplementedError, match="rmsprop"):
+            make_optimizer(model.parameters(), cfg)
 
 
-def test_train_cli_runs_deformable(tmp_path, request):
+def test_train_cli_runs_deformable(tmp_path):
     """The port's train CLI with ``do_deformable: True`` (3 demons steps at
     ``reg_fit_scale`` 2) under both structures: one finite step each, and
     losses that differ (the structure reaches the prior; the step itself is
@@ -131,9 +219,6 @@ def test_train_cli_runs_deformable(tmp_path, request):
     paths = generate_dataset(str(tmp_path / "data"), n_train=2, n_test=1,
                              shape=(16, 48, 48), seed=0)
     first = {}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)   # small shapes; the suite runs several workers
-    request.addfinalizer(lambda: torch.set_num_threads(threads))
     for sampler in ("matmul", "gather"):
         cfg = dict(_config(paths, str(tmp_path / sampler), None), use_registration_loss=True,
                    do_deformable=True, reg_demons_iters=3, reg_affine_iters=4,

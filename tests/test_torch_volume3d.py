@@ -44,15 +44,9 @@ from rpnet_tpu_torch.train.convert import state_dict_from_jax
 from test_torch_cli import _config
 from test_torch_models import jax_rpnet
 
+torch.set_num_threads(2)   # small shapes; the suite runs several workers on one machine
+
 _FLOAT = re.compile(r"-?\d+\.\d+(e-?\d+)?")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
