@@ -151,7 +151,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and in bf16: the f32 masks' foreground share above 1%, the fewshot Dice
      finite (logged beside the prior's), bf16 within 0.01 Dice of f32 at the
      last iteration and masks agreeing on more than 98% of pixels at every
-     iteration; the phase's seconds logged.
+     iteration; the phase's seconds logged;
+  lgca-reference — the full-width LGCANet_V3 (random seeded weights, 4
+     ROIs) on the card vs on the CPU, f32 with TF32 off, on a (1, 32, 64,
+     64, 1) volume and 4 slices of 128²: one eval forward (``seg_2d`` and
+     ``dsv`` within ``LGCA_REF_BOUNDS`` of their largest magnitude) and one
+     SGD step at lr 1 (the loss, and each parameter's change against the
+     norm of the change);
+  lgca-train — the port's train CLI with ``yamls/example_lgca.yml`` (U_Net,
+     BatchNorm2d, full widths, 8 slices of 288² and a 144³ context volume a
+     step, 4 ROIs, AdamW) on 2 synthetic 280×272×272 volumes for 4 steps,
+     launch counts set to 0 just before and read just after: no correlation
+     kernel runs (the LGCA path has none); finite losses, warm s/step and
+     peak memory logged, the checkpoint loading into the eval model;
+  lgca-eval — the port's eval CLI on the synthetic eval volume with that
+     checkpoint: 18 forwards of 16 slices, no correlation launch, no failed
+     volume; volumes/s, peak memory and per-ROI Dice logged; then one warm
+     train step and one warm eval volume under ``torch.profiler`` (device
+     time by operator group: 3D and 2D convolutions, attention, norms,
+     other), and the LGCA phases' seconds (``[phases]``).
 
 Then it prints the kernel table (a ``kernels`` line and a ``{"kernels":
 ...}`` JSON line), the card's name and power limit from nvidia-smi, and as
@@ -1956,6 +1974,316 @@ def phase_trained_eval(train_cfg, eval_cfg):
     return t_train
 
 
+LGCA_ROIS = ("Liver", "Spleen", "Kidney L", "Kidney R")
+LGCA_VOLUME = (280, 272, 272)              # yamls/example_lgca.yml's num_slice, num_y, num_x
+LGCA_STEPS = 4
+LGCA_CHUNK = 16                            # evaluate_lgca_volume's slices a forward
+# card vs CPU, f32 without TF32 (phase lgca-reference): max |diff| over the
+# CPU's largest magnitude, the loss's relative difference, and each
+# parameter's change against the norm of the change. Set from the first
+# measurement (H100): 1.6e-6, 3.8e-6, 6.7e-8, and 5.0e-2 on the deepest
+# attention level's 3D embedding, whose adaptive max pool routes the gradient
+# through one argmax a window (card and CPU part at near ties)
+LGCA_REF_BOUNDS = {"seg_2d": 1e-4, "dsv": 1e-4, "loss": 1e-6, "change": 1e-1}
+
+
+def lgca_shape(cfg):
+    """The LGCA sampler's working shape (D, H, W) and the context volume's."""
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
+
+    s = LGCAVolumeSampler(cfg["data_dir"], cfg["train_set_name"], Config(cfg))
+    return s.shape, tuple(n // d for n, d in zip(s.shape, s.ds))
+
+
+def make_lgca_config():
+    """``yamls/example_lgca.yml`` pointed at a synthetic set: 2 train and 1
+    eval volume of 280×272×272 with the example's 4 ROIs."""
+    import yaml
+
+    from rpnet_tpu_torch.core.synthetic import generate_dataset
+
+    t0 = time.time()
+    paths = generate_dataset(os.path.join(WORK, "lgca_data"), n_train=2, n_test=1,
+                             shape=LGCA_VOLUME, classes=LGCA_ROIS, seed=4)
+    log(f"[data] 3 synthetic {'x'.join(map(str, LGCA_VOLUME))} LGCA volumes "
+        f"({', '.join(LGCA_ROIS)}) in {time.time() - t0:.1f}s")
+    with open(os.path.join(ROOT, "yamls", "example_lgca.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(data_dir=paths["data_dir"], train_set_name=paths["train_csv"],
+               eval_set_name=paths["test_csv"], out_dir=os.path.join(WORK, "lgca_out"))
+    path = os.path.join(WORK, "example_lgca_synthetic.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path, cfg
+
+
+def phase_lgca_reference():
+    """Phase lgca-reference: the full-width LGCANetV3 (random seeded weights,
+    4 ROIs) on the card vs on the CPU, f32 with TF32 off: one eval forward
+    (``seg_2d``, ``dsv``) and one train step (SGD at lr 1, so each
+    parameter's change is its gradient; the loss) on a (1, 32, 64, 64, 1)
+    volume and 4 slices of 128²."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from rpnet_tpu_torch.models.factory import build_lgcanet
+    from rpnet_tpu_torch.train.lgca import make_lgca_train_step
+    from rpnet_tpu_torch.train.trainer import make_optimizer
+
+    cfg = {"roi_names": list(LGCA_ROIS), "optimizer": "sgd", "init_lr": 1.0,
+           "momentum": 0.9, "weight_decay": 0.0, "scheduler_step": 0}
+    rng = np.random.RandomState(0)
+    zz, yy, xx = np.mgrid[:32, :64, :64] / np.array([32, 64, 64])[:, None, None, None]
+    organ = (((zz - 0.5) / 0.3) ** 2 + ((yy - 0.5) / 0.25) ** 2 + ((xx - 0.4) / 0.2) ** 2) <= 1
+    vol = np.clip(0.6 * organ - 0.3 + 0.2 * rng.randn(*organ.shape), -1, 1)
+    volume = vol[None, ..., None].astype(np.float32)
+    up = np.repeat(np.repeat(vol[8:24:4], 2, axis=1), 2, axis=2)          # 4 slices of 128²
+    slices = up[..., None].astype(np.float32)
+    m_up = np.repeat(np.repeat(organ[8:24:4], 2, axis=1), 2, axis=2)
+    mask = np.zeros((4, 128, 128, 4), np.float32)
+    mask[..., 0] = m_up
+    vmask = np.zeros((1, 32, 64, 64, 4), np.float32)
+    vmask[0, ..., 0] = organ
+    batch = [torch.from_numpy(a) for a in (volume, slices, mask, vmask)]
+
+    base = build_lgcanet(cfg, seed=7)
+    start = copy.deepcopy(base.state_dict())
+    fwd, steps = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        with tf32_off():
+            with torch.no_grad():
+                out = model.eval()(*(b.to(dev) for b in batch[:2]))
+                fwd[dev] = {k: out[k].cpu() for k in ("seg_2d", "dsv")}
+            step = make_lgca_train_step(model, make_optimizer(model.parameters(), cfg))
+            m = step({"step": 0}, [b.to(dev) for b in batch])
+            steps[dev] = (float(m["loss"]), {n: p.detach().cpu()
+                                             for n, p in model.named_parameters()})
+    errs = {k: float((fwd["cuda"][k] - fwd["cpu"][k]).abs().max()
+                     / fwd["cpu"][k].abs().max()) for k in ("seg_2d", "dsv")}
+    (loss_c, p_c), (loss_g, p_g) = steps["cpu"], steps["cuda"]
+    errs["loss"] = abs(loss_g - loss_c) / abs(loss_c)
+    # conv biases that a batch norm or (every context-net conv but dsv's) an
+    # instance norm follows get no gradient in exact arithmetic: skipped
+    cancelled = bn_cancelled_biases(base) | {
+        n for n in p_c if n.startswith("context_net.") and n.endswith(".bias")
+        and not n.startswith("context_net.dsv.")}
+    changes = {n: float(torch.linalg.vector_norm(p_g[n] - p_c[n])
+                        / torch.linalg.vector_norm(p_c[n] - start[n]).clamp_min(1e-12))
+               for n in p_c if n not in cancelled}
+    errs["change"] = max(changes.values())
+    log(f"[lgca-reference] full-width LGCANetV3 (4 ROIs), volume 1x32x64x64, 4 slices of "
+        f"128², card vs CPU (TF32 off): " + ", ".join(
+            f"{k} {v:.2e} (bound {LGCA_REF_BOUNDS[k]:.0e})" for k, v in errs.items())
+        + f"; loss card {loss_g:.6f} CPU {loss_c:.6f}; worst changes " + ", ".join(
+            f"{n} {changes[n]:.2e}" for n in sorted(changes, key=changes.get)[-3:]))
+    if any(not (v <= LGCA_REF_BOUNDS[k]) for k, v in errs.items()):
+        raise AssertionError(f"LGCANetV3 on the card disagrees with the CPU: {errs}")
+
+
+def phase_lgca_train(yaml_path, cfg):
+    """Phase lgca-train: the port's train CLI with ``net: LGCANet_V3`` at the
+    example's full width and shapes (288³ working shape, a 144³ context
+    volume, 8 slices of 288² a step, 4 ROIs) for ``LGCA_STEPS`` steps, launch
+    counts set to 0 just before and read just after: no correlation kernel
+    runs on this path; every loss finite; the checkpoint loads into the eval
+    model."""
+    import torch
+
+    from rpnet_tpu_torch.cli import train as train_cli
+    from rpnet_tpu_torch.models.factory import build_lgcanet
+    from rpnet_tpu_torch.train.convert import load_into, load_torch_checkpoint
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    res = train_cli.main(["--yaml", yaml_path, "--epochs", "1",
+                          "--episodes-per-epoch", str(LGCA_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, warm = res["step_losses"], res["step_seconds"]
+    if len(losses) != LGCA_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"LGCA training: {len(losses)} steps, losses {losses}")
+    if launches:
+        raise AssertionError(f"correlation launches on the LGCA path: {launches}")
+    ckpt = load_torch_checkpoint(res["checkpoint"])
+    init = build_lgcanet(cfg, seed=int(cfg.get("seed", 0))).state_dict()
+    moved = [k for k, v in ckpt["state_dict"].items()
+             if k in init and v.is_floating_point() and not torch.equal(v, init[k])]
+    load_into(build_lgcanet(cfg), ckpt["state_dict"])
+    (_, H, W), ctx = lgca_shape(cfg)
+    log(f"[lgca-train] {len(losses)} steps of {cfg['lgca_slices']} slices of {H}x{W} and a "
+        f"{'x'.join(map(str, ctx))} context volume: losses {losses}, seconds between steps {warm} (warm mean "
+        f"{sum(warm) / len(warm):.4f}s a step; host sampling overlapped: "
+        f"{res['data_seconds']}), peak memory allocated {peak_gb:.2f} GiB, CLI wall "
+        f"{wall:.1f}s, correlation launches {launches or 0}; {res['checkpoint']}: "
+        f"{len(moved)} of {len(init)} tensors moved, loads into the eval model")
+    if len(moved) < len(init) // 2:
+        raise AssertionError(f"LGCA checkpoint: {len(moved)} of {len(init)} tensors moved")
+    return res
+
+
+def phase_lgca_eval(cfg, ckpt: str):
+    """Phase lgca-eval: the port's eval CLI with ``net: LGCANet_V3`` on the
+    eval volume with the lgca-train checkpoint, launch counts set to 0 just
+    before and read just after: 18 forwards of 16 slices a 288-slice volume, no
+    correlation launch, no failed volume, a Dice (or None) per ROI."""
+    import torch
+    import yaml
+
+    from rpnet_tpu_torch.cli import test_rpnet
+    from rpnet_tpu_torch.models.lgca import LGCANetV3
+
+    path = os.path.join(WORK, "example_lgca_eval.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(cfg, ckpt=ckpt, out_dir=os.path.join(WORK, "lgca_eval_out")), f)
+    calls = []
+
+    def count(module, args, out):
+        if isinstance(module, LGCANetV3):
+            calls.append(tuple(args[1].shape))
+
+    handle = torch.nn.modules.module.register_module_forward_hook(count)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = test_rpnet.main(["--yaml", path])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        handle.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    chunks = -(-lgca_shape(cfg)[0][0] // LGCA_CHUNK) * res["volumes"]
+    log(f"[lgca-eval] {res['volumes']} volume(s), {len(calls)} forwards of {calls[0]} "
+        f"(expected {chunks}), {res['volumes_per_sec']:.4f} volumes/s (first pass, "
+        f"includes warm-up; {res['wall_time_sec']:.2f}s), peak memory allocated "
+        f"{peak_gb:.2f} GiB, failed volumes {res['failed_volumes']}, correlation "
+        f"launches {launches or 0}; dice " + json.dumps(
+            {k: v["dice"] for k, v in res["classes"].items()}))
+    if res["failed_volumes"] or len(calls) != chunks or launches:
+        raise AssertionError(f"LGCA eval: {res['failed_volumes']} failed, {len(calls)} "
+                             f"forwards, launches {launches}")
+    return res
+
+
+def profile_lgca(cfg, ckpt: str):
+    """torch.profiler over one warm LGCA train step and one warm eval volume
+    (18 forwards), after two warm eval volumes timed without it: device time
+    by group and the busy share (a measurement; nothing is checked)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
+    from rpnet_tpu_torch.models.factory import build_lgcanet
+    from rpnet_tpu_torch.train.convert import load_into, load_torch_checkpoint
+    from rpnet_tpu_torch.train.lgca import evaluate_lgca_volume, init_lgca, make_lgca_train_step
+    from rpnet_tpu_torch.utils.timing import cuda_ms
+
+    config = Config(cfg)
+    sampler = LGCAVolumeSampler(config["data_dir"], config["train_set_name"], config)
+    s = sampler.sample(0, rng=np.random.RandomState(0))
+    batch = [torch.from_numpy(s[k]).cuda() for k in ("volume", "slices", "mask",
+                                                      "downsampled_volume_mask")]
+    model, optimizer, state = init_lgca(config, device="cuda")
+    step = make_lgca_train_step(model, optimizer)
+    float(step(state, batch)["loss"])   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        float(step(state, batch)["loss"])
+        torch.cuda.synchronize()
+    log_lgca_profile("lgca-train-profile", "one warm step", prof,
+                     (time.perf_counter() - t0) * 1e3)
+
+    ev = LGCAVolumeSampler(config["data_dir"], config["eval_set_name"], config, mode="eval")
+    sample = ev.sample(0)
+    model = build_lgcanet(config, device="cuda")
+    load_into(model, load_torch_checkpoint(ckpt)["state_dict"])
+    evaluate_lgca_volume(model, sample, "cuda")   # warm-up
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        evaluate_lgca_volume(model, sample, "cuda")   # ends in the predictions' fetch
+        walls.append(time.perf_counter() - t0)
+    log(f"[lgca-eval-profile] warm eval volume (sampled volume on the host), seconds "
+        f"{walls}: {1 / min(walls):.4f} volumes/s")
+    volume = torch.from_numpy(sample["volume"]).cuda()
+    chunk = torch.from_numpy(sample["slices"][:LGCA_CHUNK]).cuda()
+    with torch.no_grad():
+        ctx_ms = cuda_ms(lambda: model.context_net(volume), 5)
+        fwd_ms = cuda_ms(lambda: model(volume, chunk), 5)
+    log(f"[lgca-eval-profile] one chunk's forward {fwd_ms:.3f} ms, the context net's "
+        f"alone {ctx_ms:.3f} ms (CUDA events, median of 3 rounds of 5), "
+        f"x{-(-sample['slices'].shape[0] // LGCA_CHUNK)} chunks a volume")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        evaluate_lgca_volume(model, sample, "cuda")
+        torch.cuda.synchronize()
+    log_lgca_profile("lgca-eval-profile", "one warm eval volume (18 forwards of 16 slices)",
+                     prof, (time.perf_counter() - t0) * 1e3)
+
+
+# operators whose kernels (their own and those of the operators inside them)
+# make up each group of the LGCA profiles
+LGCA_PROFILE_GROUPS = {
+    "convolutions": ("aten::cudnn_convolution", "aten::convolution_backward"),
+    # instance norms (torch's batch norm kernels), eval batch norms, and the
+    # training batch norms' statistics (models/blocks.BatchNorm2d: var_mean;
+    # their scale and shift count as "other")
+    "norms": ("aten::native_batch_norm", "aten::cudnn_batch_norm",
+              "aten::native_batch_norm_backward", "aten::cudnn_batch_norm_backward",
+              "aten::var_mean"),
+    "attention": ("aten::mm", "aten::_softmax", "aten::_softmax_backward_data",
+                  "aten::adaptive_max_pool2d", "aten::adaptive_max_pool3d",
+                  "aten::adaptive_max_pool2d_backward", "aten::adaptive_max_pool3d_backward"),
+    "trilinear x8": ("aten::upsample_trilinear3d", "aten::upsample_trilinear3d_backward"),
+}
+
+
+def log_lgca_profile(tag: str, what: str, prof, wall_ms: float):
+    """Device time of each kernel under the nearest enclosing operator of
+    ``LGCA_PROFILE_GROUPS`` (the convolutions split into 3D and 2D by that
+    operator's first input's rank), "other" where none encloses it; each
+    kernel counted once, under the operator that launched it (its
+    ``kernels``: an operator's inclusive device time counts some kernels
+    twice under ``no_grad``); then ``log_device_profile``'s line and top ten
+    kernels."""
+    import torch
+
+    group_of = {op: g for g, ops in LGCA_PROFILE_GROUPS.items() for op in ops}
+    groups = {"3D convolutions": 0.0, "2D convolutions": 0.0, "norms": 0.0,
+              "attention": 0.0, "trilinear x8": 0.0, "other": 0.0}
+    seen = set()
+    for e in prof.events():
+        us = sum(k.duration for k in getattr(e, "kernels", []) or [])
+        if not us or e.id in seen:     # an operator recorded twice carries its kernels twice
+            continue
+        seen.add(e.id)
+        op = e
+        while op is not None and op.name not in group_of:
+            op = op.cpu_parent
+        group = group_of[op.name] if op is not None else "other"
+        if group == "convolutions":
+            rank = len(next((sh for sh in op.input_shapes or [] if sh), []))
+            group = "3D convolutions" if rank == 5 else "2D convolutions"
+        groups[group] += us / 1e3
+    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    log(f"[{tag}] {what}: device time {sum(groups.values()):.2f} ms by the operator "
+        f"that launched it (the kernels' own total {total:.2f} ms) "
+        + json.dumps({k: round(v, 3) for k, v in groups.items()}))
+    log_device_profile(tag, what, prof, wall_ms)
+
+
 def gpu_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2084,6 +2412,23 @@ def main() -> int:
         f"({len(TRAIN_REFERENCE)} steps) {t_6:.1f}, 3g trained checkpoint "
         f"{time.time() - t0:.1f}; the script so far {time.time() - T_START:.1f}")
 
+    # LGCANet_V3: no correlation kernel on its path (every count 0)
+    t0 = time.time()
+    phase_lgca_reference()
+    t_lref = time.time() - t0
+    lgca_yaml, lgca_cfg = make_lgca_config()
+    t0 = time.time()
+    lgca_res = phase_lgca_train(lgca_yaml, lgca_cfg)
+    t_ltrain = time.time() - t0
+    t0 = time.time()
+    phase_lgca_eval(lgca_cfg, lgca_res["checkpoint"])
+    t_leval = time.time() - t0
+    t0 = time.time()
+    profile_lgca(lgca_cfg, lgca_res["checkpoint"])
+    log(f"[phases] seconds: lgca-reference {t_lref:.1f}, lgca-train {t_ltrain:.1f}, "
+        f"lgca-eval {t_leval:.1f}, lgca profiles {time.time() - t0:.1f}; the script so "
+        f"far {time.time() - T_START:.1f}")
+
     def entry(name, source, replaces, res, n_launches, **extra):
         """``replaces``: a line of rpnet_tpu/ops/pallas/correlation.py, or
         "file:line" of another file; ``extra``: more keys of the entry."""
@@ -2108,9 +2453,10 @@ def main() -> int:
     row1_runs = {"main": launches, **{f"data-{k}": v for k, v in data_launches.items()},
                  **{f"breadth-{k}": v for k, v in breadth_launches.items()},
                  **{f"deform-{k}": v for k, v in deform_launches.items()},
-                 "eval3d": eval3d_launches}
+                 "eval3d": eval3d_launches, "lgca-eval": {}}
     train_runs = {"train": train_launches, "train-deform": train_deform_launches,
-                  **{f"train-{k}": v for k, v in breadth_train_launches.items()}}
+                  **{f"train-{k}": v for k, v in breadth_train_launches.items()},
+                  "lgca-train": {}}
     kernels = [
         entry("local_correlation", "local_corr.cu", 289, main_case,
               launches["local_correlation"],

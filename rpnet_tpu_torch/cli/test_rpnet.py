@@ -19,6 +19,12 @@ settled. The ``stage_timing`` line reports the host seconds of the ``data``,
 stages. With ``eval_3d`` each pass segments every slice of each query volume
 instead (``episode/volume3d.py``, sliding windows), one process only.
 
+``net: LGCANet_V3`` runs :func:`eval_lgca` instead, the JAX CLI's
+whole-volume eval (``rpnet_tpu/cli/test_rpnet.py:326-382``): per-ROI Dice of
+every eval volume, one line a volume, the average block and
+``results_eval.json``, on one card (``mesh_shape`` raises; ROADMAP.md
+queue 1 item 8).
+
 It runs on the GPU (``--platform gpu``, the default) and raises when there
 is none; ``--platform cpu`` runs on the CPU with the kernels' plain versions.
 ``ckpt: null`` gives a seeded init; a ``.pth`` path loads a torch checkpoint.
@@ -44,8 +50,10 @@ from rpnet_tpu_torch.config import Config, load_yaml
 from rpnet_tpu_torch.episode.pipeline import EpisodeRunner
 from rpnet_tpu_torch.episode.prefetch import EpisodeFailure, PrefetchingSampler
 from rpnet_tpu_torch.episode.sampler import EpisodeSampler, EpisodeSpec
+from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
 from rpnet_tpu_torch.episode.volume3d import Volume3DRunner, Volume3DSampler
-from rpnet_tpu_torch.models.factory import build_rpnet
+from rpnet_tpu_torch.models.factory import build_lgcanet, build_rpnet
+from rpnet_tpu_torch.train.lgca import evaluate_lgca_volume
 from rpnet_tpu_torch.utils.logger import Logger
 
 parser = argparse.ArgumentParser(description="RP-Net episodic eval (PyTorch)")
@@ -66,18 +74,37 @@ def resolve_device(platform: str) -> torch.device:
     return torch.device("cuda")
 
 
+def check_net(config: Config) -> None:
+    """The ``net`` values both CLIs run, on one card: LGCANet_V3 with a
+    ``mesh_shape`` raises (the multi-device branches are not ported)."""
+    net = config["net"]
+    if net not in ("RP_Net", "LGCANet_V3"):
+        raise NotImplementedError(f"net: {net!r} is not ported to rpnet_tpu_torch "
+                                  "(ported: RP_Net, LGCANet_V3)")
+    if net == "LGCANet_V3" and config.get("mesh_shape"):
+        raise NotImplementedError(
+            "LGCANet_V3 with mesh_shape: rpnet_tpu_torch runs it on one card "
+            "(the mesh branches are ROADMAP.md queue 1 item 8)")
+
+
+def load_checkpoint_into(model, config: Config) -> None:
+    """The configured ``ckpt`` (a torch ``.pth``) into ``model``, if any."""
+    ckpt = config.get("ckpt")
+    if not ckpt:
+        return
+    if not ckpt.endswith((".pth", ".pt", ".tar")):
+        raise NotImplementedError(
+            f"ckpt {ckpt}: only torch .pth checkpoints load into "
+            "rpnet_tpu_torch (orbax checkpoints need the JAX package)")
+    from rpnet_tpu_torch.train.convert import load_into, load_torch_checkpoint
+    print(f"[Loading model from {ckpt}]")
+    load_into(model, load_torch_checkpoint(ckpt)["state_dict"])
+
+
 def build_runner(config: Config, device, seed: int = 0) -> EpisodeRunner:
     """The runner of the model (seeded init, or the configured ``.pth``)."""
     model = build_rpnet(config, num_iter=config["n_iter_refinement"], seed=seed)
-    ckpt = config.get("ckpt")
-    if ckpt:
-        if not ckpt.endswith((".pth", ".pt", ".tar")):
-            raise NotImplementedError(
-                f"ckpt {ckpt}: only torch .pth checkpoints load into "
-                "rpnet_tpu_torch (orbax checkpoints need the JAX package)")
-        from rpnet_tpu_torch.train.convert import load_into, load_torch_checkpoint
-        print(f"[Loading model from {ckpt}]")
-        load_into(model, load_torch_checkpoint(ckpt)["state_dict"])
+    load_checkpoint_into(model, config)
     runner = EpisodeRunner(model, config, device)
     dt = config.get("compute_dtype") or "bfloat16 (auto)"
     print(f"[network compute dtype {dt}; registration/metrics f32 — "
@@ -253,9 +280,7 @@ def main(argv=None):
     config = Config(load_yaml(args.yaml))
     # eval uses the test-time refinement depth (test_rpnet.py:51)
     config = config.replace(n_iter_refinement=config["n_test_iter_refinement"])
-    if config.get("net", "RP_Net") != "RP_Net":
-        raise NotImplementedError("rpnet_tpu_torch ports the RP_Net eval only "
-                                  "(no LGCANet_V3 yet)")
+    check_net(config)
 
     seed = int(config.get("seed", 0))
     np.random.seed(seed)
@@ -267,6 +292,8 @@ def main(argv=None):
     logger = Logger(os.path.join(out_dir, "log_eval"))
     sys.stdout = logger
     try:
+        if config["net"] == "LGCANet_V3":
+            return eval_lgca(config, device, out_dir, seed)
         sampler = EpisodeSampler(config["data_dir"], config["eval_set_name"],
                                  config)
         print(f"[length of eval loader {len(sampler)}]")
@@ -276,6 +303,55 @@ def main(argv=None):
     finally:
         sys.stdout = logger.terminal
         logger.close()
+
+
+def eval_lgca(config: Config, device, out_dir: str, seed: int = 0) -> Dict:
+    """LGCANet_V3 whole-volume eval over the eval split
+    (``rpnet_tpu/cli/test_rpnet.py:326-382``): a line ``{j} {pid} {roi}
+    {dice} ...`` a volume (None for an ROI the volume lacks), a failed
+    volume logged, counted and skipped, then each ROI's mean and std over
+    volumes; ``results_eval.json`` holds them with the volume counts and
+    the volumes/s."""
+    sampler = LGCAVolumeSampler(config["data_dir"], config["eval_set_name"],
+                                config, mode="eval")
+    print(f"[length of LGCA eval loader {len(sampler)}]")
+    model = build_lgcanet(config, seed=seed, device=device)
+    load_checkpoint_into(model, config)
+
+    rois = list(config["roi_names"])
+    per_class = defaultdict(list)
+    failures = 0
+    t0 = time.time()
+    for j in range(len(sampler)):
+        try:
+            s = sampler.sample(j)
+            dices = evaluate_lgca_volume(model, s, device)
+        except Exception:
+            failures += 1
+            print(f"{j} VOLUME FAILED — skipping:\n{traceback.format_exc()}")
+            continue
+        print(f"{j} {s['pid']} " + " ".join(f"{rois[k]} {dices[f'class_{k}']}"
+                                            for k in range(len(rois))))
+        for k in range(len(rois)):
+            if dices[f"class_{k}"] is not None:
+                per_class[rois[k]].append(dices[f"class_{k}"])
+    wall = time.time() - t0
+    if failures:
+        print(f"[{failures} volume(s) failed]")
+
+    results: Dict = {"classes": {}, "wall_time_sec": wall, "volumes": len(sampler),
+                     "failed_volumes": failures,
+                     "volumes_per_sec": (len(sampler) - failures) / max(wall, 1e-9)}
+    print("=======Average performance=========")
+    for roi in rois:
+        vals = per_class[roi]
+        m = float(np.mean(vals)) if vals else float("nan")
+        sd = float(np.std(vals)) if vals else float("nan")
+        print(f"{roi}, dice {m} + {sd}")
+        results["classes"][roi] = {"dice": [m, sd]}
+    with open(os.path.join(out_dir, "results_eval.json"), "w") as fjson:
+        json.dump(results, fjson, indent=2)
+    return results
 
 
 def run_eval_protocol(runner, sampler, config: Config, out_dir: str, n_runs: int):

@@ -25,8 +25,14 @@ Training leaves cuDNN's convolutions at torch's default precision (TF32 on
 the card), as the JAX package leaves its f32 convolutions at XLA's default:
 over 100 steps of the example's training block the windowed loss means of
 TF32 and full f32 agree within 0.6% (``tools/train_precision_ab.py``); the
-demons blur keeps f32 (``registration/gaussian.no_tf32``). Not ported yet
-(ROADMAP.md): LGCANet_V3 training.
+demons blur keeps f32 (``registration/gaussian.no_tf32``).
+
+``net: LGCANet_V3`` runs :func:`train_lgca` instead, the counterpart of
+``rpnet_tpu/cli/train.py:73-150``: one whole-volume sample a step (volume
+``j % len(sampler)``, its ``lgca_slices`` slices drawn from
+``np.random.RandomState(seed)``), the same ``epoch N loss X (Y
+volumes/s)`` line and ``.pth`` checkpoints with the upstream LGCA names, on
+one card (``mesh_shape`` raises; ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -41,13 +47,15 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from rpnet_tpu_torch.cli.test_rpnet import resolve_device
+from rpnet_tpu_torch.cli.test_rpnet import check_net, resolve_device
 from rpnet_tpu_torch.config import Config, load_yaml
+from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
 from rpnet_tpu_torch.episode.sampler import EpisodeSampler
 from rpnet_tpu_torch.models.factory import build_rpnet
 from rpnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from rpnet_tpu_torch.train.convert import (convert_torchvision_vgg16, load_into,
                                            load_torch_checkpoint)
+from rpnet_tpu_torch.train.lgca import init_lgca, make_lgca_train_step
 from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
 from rpnet_tpu_torch.utils.logger import Logger
 
@@ -92,12 +100,6 @@ def collate_batch(episodes, target_k: int = None) -> tuple:
     return supp_img, _compact_labels(supp_lab), qry_img, _compact_labels(qry_lab)
 
 
-def _check_ported(config: Config) -> None:
-    if config.get("net", "RP_Net") != "RP_Net":
-        raise NotImplementedError("rpnet_tpu_torch trains RP_Net only "
-                                  "(LGCANet_V3 is not ported yet)")
-
-
 def apply_pretrained(model, config: Config) -> None:
     """The ``pretrained_path`` warm start (``rpnet_tpu/train/checkpoint.py:
     124-155``): a torchvision VGG16 checkpoint into the VGG encoder's
@@ -137,7 +139,7 @@ def main(argv=None):
         return None
     device = resolve_device(args.platform)
     config = Config(load_yaml(args.yaml))
-    _check_ported(config)
+    check_net(config)
 
     seed = int(config.get("seed", 0))
     np.random.seed(seed)
@@ -150,6 +152,8 @@ def main(argv=None):
     logger = Logger(os.path.join(out_dir, "log_train"))
     sys.stdout = logger
     try:
+        if config["net"] == "LGCANet_V3":
+            return train_lgca(config, args, device, out_dir, seed)
         return train(config, args, device, out_dir, seed)
     finally:
         sys.stdout = logger.terminal
@@ -239,6 +243,72 @@ def train(config: Config, args, device, out_dir: str, seed: int) -> Dict:
     finally:
         if writer is not None:
             writer.close()
+    return results
+
+
+def train_lgca(config: Config, args, device, out_dir: str, seed: int) -> Dict:
+    """The LGCANet_V3 epoch loop (``rpnet_tpu/cli/train.py:73-150``); returns
+    what :func:`train` returns."""
+    sampler = LGCAVolumeSampler(config["data_dir"], config["train_set_name"],
+                                config, mode="train")
+    print(f"[length of LGCA train loader {len(sampler)}]")
+    epochs = args.epochs or int(config.get("epochs", 100))
+    epoch_save = int(config.get("epoch_save", 1))
+    steps_per_epoch = args.episodes_per_epoch or len(sampler)
+
+    model, optimizer, state = init_lgca(config, seed, device, steps_per_epoch)
+    start_epoch = 0
+    if config.get("ckpt"):
+        print(f"[Loading model from {config['ckpt']}]")
+        start_epoch = restore_checkpoint(config["ckpt"], model, optimizer,
+                                         steps_per_epoch)
+        state["step"] = start_epoch * steps_per_epoch
+    step = make_lgca_train_step(model, optimizer)
+    rng = np.random.RandomState(seed)
+
+    def to_device(a):
+        return torch.from_numpy(a).to(device, non_blocking=True)
+
+    results: Dict[str, List] = {"step_losses": [], "step_seconds": [],
+                                "data_seconds": [], "epoch_losses": [],
+                                "checkpoint": None}
+    t_last = None
+    for epoch in range(start_epoch, epochs):
+        t0 = time.time()
+        losses: List[float] = []
+        pending = None   # the last step's metrics, still on the device
+
+        def fetch():
+            nonlocal t_last
+            losses.append(float(pending["loss"]))   # waits for that step
+            now = time.perf_counter()
+            if t_last is not None:
+                results["step_seconds"].append(now - t_last)
+            t_last = now
+
+        for j in range(steps_per_epoch):
+            # sample volume j while the device runs step j - 1
+            t_data = time.perf_counter()
+            s = sampler.sample(j % len(sampler), rng=rng)
+            batch = tuple(to_device(s[k]) for k in ("volume", "slices", "mask",
+                                                    "downsampled_volume_mask"))
+            results["data_seconds"].append(time.perf_counter() - t_data)
+            if pending is not None:
+                fetch()
+            pending = step(state, batch)
+        if pending is not None:
+            fetch()
+        wall = time.time() - t0
+        mean_loss = float(np.mean(losses))
+        print(f"epoch {epoch} loss {mean_loss:.4f} "
+              f"({steps_per_epoch / max(wall, 1e-9):.2f} volumes/s)")
+        results["step_losses"] += losses
+        results["epoch_losses"].append(mean_loss)
+        if (epoch + 1) % epoch_save == 0:
+            # epoch = completed epochs (epoch + 1): a resume starts at the next
+            results["checkpoint"] = save_checkpoint(
+                os.path.join(out_dir, "model", f"epoch_{epoch:03d}.pth"), epoch + 1,
+                model, optimizer)
     return results
 
 

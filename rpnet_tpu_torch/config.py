@@ -109,6 +109,17 @@ _DEFAULTS: Dict[str, Any] = {
     "eval_3d": False,           # whole-volume sliding-window eval
     "overlap_3d": 8,            # z-overlap between eval_3d windows
     "slice_bucket": 32,         # eval_3d window (the JAX runner's bucket)
+    # --- LGCANet_V3 (lgca_net_v3.py; rpnet_tpu/episode/lgca_data.py) ---
+    "context_net_downsample_scale": [2, 2, 2],   # context volume stride (z, y, x)
+}
+
+# LGCANet_V3 keys that the JAX package reads with a default in its code, not
+# in its Config (``rpnet_tpu/episode/lgca_data.py:60``,
+# ``rpnet_tpu/models/factory.py:43-46``); the same defaults here.
+_LGCA_DEFAULTS: Dict[str, Any] = {
+    "lgca_slices": 8,           # 2D slices per training step
+    "net_UNet": "U_Net",        # U_Net | AttU_Net (attention gates)
+    "feature_scale": 1.0,       # 2D U-Net widths 64..1024 divided by this
 }
 
 
@@ -120,8 +131,8 @@ class Config:
     raw: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
-        merged = dict(_DEFAULTS)
-        merged.update({k: v for k, v in self.raw.items() if v is not None or k not in _DEFAULTS})
+        merged = dict(_DEFAULTS, **_LGCA_DEFAULTS)
+        merged.update({k: v for k, v in self.raw.items() if v is not None or k not in merged})
         if merged.get("test_shot") is None:
             merged["test_shot"] = merged["n_shot"]
         if merged.get("scale") is None:

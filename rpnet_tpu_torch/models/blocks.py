@@ -208,12 +208,29 @@ class UpConv(nn.Module):
         return self.up(x)
 
 
+class AttentionBlock(nn.Module):
+    """Attention U-Net gate (Attention_block, net/modules.py:78-105; the JAX
+    ``AttentionBlock``, ``rpnet_tpu/models/blocks.py:184-199``): ``x`` scaled
+    by sigmoid(norm(psi(relu(norm(W_g g) + norm(W_x x))))), each a 1×1 conv
+    with bias followed by the ``unet_normalize_type`` norm, under the
+    upstream names ``W_g.{0,1}``, ``W_x.{0,1}`` and ``psi.{0,1}``."""
+
+    def __init__(self, f_g: int, f_l: int, f_int: int, norm: str = "BatchNorm2d"):
+        super().__init__()
+        self.W_g = nn.Sequential(*conv_bn_relu(f_g, f_int, 1, norm)[:2])
+        self.W_x = nn.Sequential(*conv_bn_relu(f_l, f_int, 1, norm)[:2])
+        self.psi = nn.Sequential(*conv_bn_relu(f_int, 1, 1, norm)[:2], nn.Sigmoid())
+
+    def forward(self, g, x):
+        return x * self.psi(torch.relu(self.W_g(g) + self.W_x(x)))
+
+
 @torch.no_grad()
 def init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-draw every conv's parameters with torch's default init from
-    ``generator`` (reset_parameters draws from the global RNG)."""
+    """Re-draw every conv's parameters (2D and 3D) with torch's default init
+    from ``generator`` (reset_parameters draws from the global RNG)."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             if getattr(m, "kaiming_normal", False):   # the VGG encoder's
                 nn.init.kaiming_normal_(m.weight, nonlinearity="relu",
                                         generator=generator)
@@ -221,7 +238,7 @@ def init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
                                          generator=generator)
             if m.bias is not None:
-                fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+                fan_in = m.weight[0].numel()
                 bound = 1.0 / math.sqrt(fan_in)
                 nn.init.uniform_(m.bias, -bound, bound, generator=generator)
     return module

@@ -1,7 +1,8 @@
-"""Model factory (net/model.py:4-7): config → seeded, eval-mode RPNet.
+"""Model factory (net/model.py:4-7): config → seeded, eval-mode model.
 
-The counterpart of ``rpnet_tpu/models/factory.py::build_rpnet``, for eval
-and (with ``align`` and ``num_iter``) training; the trainer switches the
+The counterpart of ``rpnet_tpu/models/factory.py``: :func:`build_rpnet` for
+eval and (with ``align`` and ``num_iter``) training, :func:`build_lgcanet`
+for ``net: LGCANet_V3``, both in ``model_factory``; the trainers switch the
 model to training mode. Backbones ``UNet`` (with ``mask_feature_map``),
 ``vgg`` and ``resnet``; relation modes ``relation`` and ``concat``; the
 U-Net's ``unet_normalize_type`` BatchNorm2d, InstanceNorm2d or GroupNorm
@@ -17,6 +18,7 @@ import torch
 
 from rpnet_tpu_torch.config import Config
 from rpnet_tpu_torch.models.blocks import init_
+from rpnet_tpu_torch.models.lgca import LGCANetV3
 from rpnet_tpu_torch.models.rpnet import RPNet
 
 _PORTED = {"net": ("RP_Net",)}
@@ -47,3 +49,21 @@ def build_rpnet(config, num_iter: int | None = None, seed: int = 0,
     )
     init_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
+
+
+def build_lgcanet(config, seed: int = 0, device="cpu") -> LGCANetV3:
+    """LGCANetV3 from the flat config (reference ctor lgca_net_v3.py:580-590):
+    ``len(roi_names)`` output channels, the AttU_Net gates where ``net_UNet``
+    is ``AttU_Net``; initialized from ``torch.Generator(seed)`` on the CPU,
+    moved to ``device``, in eval mode."""
+    if not isinstance(config, Config):
+        config = Config(dict(config))
+    rois = config.get("roi_names") or ["roi"] * int(config.get("num_class", 6))
+    model = LGCANetV3(output_ch=len(rois), norm=config["unet_normalize_type"],
+                      feature_scale=float(config["feature_scale"]),
+                      attention_gates=config["net_UNet"] == "AttU_Net")
+    init_(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+model_factory = {"RP_Net": build_rpnet, "LGCANet_V3": build_lgcanet}

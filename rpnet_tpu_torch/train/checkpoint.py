@@ -2,9 +2,9 @@
 
 The port's form of ``rpnet_tpu/train/checkpoint.py``. A checkpoint is the
 reference's torch file, ``{'epoch', 'state_dict', 'optimizer'}``
-(test_rpnet.py:86-96), with the upstream RP-Net ``state_dict`` names — the
-file the port's eval CLI loads and the JAX package's ``restore_into``
-converts. ``epoch`` counts completed epochs, so a resume starts at the next.
+(test_rpnet.py:86-96), with the upstream ``state_dict`` names of the model
+saved (RP_Net's or LGCANet_V3's) — the file the port's eval CLI loads and
+the JAX package's ``restore_into`` converts. ``epoch`` counts completed epochs, so a resume starts at the next.
 
 Restoring overlays the checkpoint's tensors onto the fresh model, keeping
 fresh values where it has none, as the JAX ``overlay`` does. The optimizer
@@ -42,8 +42,8 @@ def _fits(optimizer: torch.optim.Optimizer, saved) -> bool:
 def restore_checkpoint(path: str, model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer,
                        steps_per_epoch: int) -> int:
-    """Overlay the checkpoint at ``path`` onto ``model`` (and ``optimizer``);
-    returns the epoch to start from."""
+    """Overlay the checkpoint at ``path`` onto ``model`` (either model
+    family) and ``optimizer``; returns the epoch to start from."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     wrapped = isinstance(raw, dict) and "state_dict" in raw   # else a bare state_dict
     sd = raw["state_dict"] if wrapped else raw
@@ -52,7 +52,7 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
     matched = {k: v for k, v in sd.items() if k in own}
     if not any(not k.endswith("num_batches_tracked") for k in matched):
         raise ValueError(f"checkpoint {path}: no tensor matches the model "
-                         "(wrong checkpoint for RP_Net?)")
+                         f"(wrong checkpoint for {type(model).__name__}?)")
     for k, v in matched.items():
         if tuple(v.shape) != tuple(own[k].shape):
             raise ValueError(f"checkpoint shape mismatch at {k}: "

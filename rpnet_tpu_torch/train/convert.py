@@ -17,6 +17,14 @@ GroupNorm's flax ``gn`` scale and bias become that slot's ``weight`` and
 JAX ``convert_state_dict`` maps batch norms only, and the port adds no
 ``.pth`` mapping of its own for GroupNorm.
 
+LGCANet_V3 has its own name space (``context_net.*``, ``unet.*``):
+:func:`lgca_state_dict_from_jax` is the exact inverse of the JAX package's
+``convert_lgca_state_dict`` (``rpnet_tpu/train/convert.py:273-314``) — 2D
+kernels HWIO → OIHW, 3D kernels DHWIO → OIDHW, batch norms as above — and
+:func:`load_into` loads an upstream LGCA ``.pth``, skipping and returning
+its dead keys (``context_net.forw4.*``, the attention ``w_q``/``w_k``), as
+that converter reports them in ``_unmatched_keys``.
+
 :func:`convert_torchvision_vgg16` is the ``pretrained_path`` warm start of
 the VGG backbone (``rpnet_tpu/train/convert.py:327-355``).
 """
@@ -83,6 +91,50 @@ def _module_pairs(params: Dict[str, Any]) -> Iterator[Tuple[str, Tuple[str, ...]
     yield "cre.q.1", ("cre", "q_norm"), "norm"
 
 
+def _lgca_pairs(params: Dict[str, Any]) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
+    """(torch module prefix, flax path of the parameter dict, 'conv' |
+    'norm') for every LGCANet_V3 module with tensors: the inverse of
+    ``_lgca_module_path`` (``rpnet_tpu/train/convert.py:195-270``). A conv
+    path ends where its ``kernel`` sits; a norm path at the norm module."""
+    ctx, unet = params["context_net"], params["unet"]
+    yield "context_net.preBlock.0", ("context_net", "pre_conv1"), "conv"
+    yield "context_net.preBlock.3", ("context_net", "pre_conv2"), "conv"
+    for stage, n in ((1, 2), (2, 2), (3, 3)):
+        for i in range(n):
+            block = f"forw{stage}_{i}"
+            for tname, jname in (("conv1", "conv1"), ("conv2", "conv2"),
+                                 ("shortcut.0", "shortcut")):
+                if jname in ctx[block]:
+                    yield (f"context_net.forw{stage}.{i}.{tname}",
+                           ("context_net", block, jname), "conv")
+    yield "context_net.dsv.1", ("context_net", "dsv_conv"), "conv"
+    for i in range(1, 6):
+        for idx, inner in _CONV_BLOCK:
+            yield f"unet.Conv{i}.conv.{idx}", ("unet", f"enc{i}", inner) + (
+                ("conv",) if inner.startswith("conv") else ()), inner[:4]
+    for i in range(2, 6):
+        yield f"unet.Up{i}.up.1", ("unet", f"up{i}", "conv", "conv"), "conv"
+        yield f"unet.Up{i}.up.2", ("unet", f"up{i}", "norm"), "norm"
+        for idx, inner in _CONV_BLOCK:
+            yield f"unet.Up_conv{i}.conv.{idx}", ("unet", f"dec{i}", inner) + (
+                ("conv",) if inner.startswith("conv") else ()), inner[:4]
+        if f"att{i}" in unet:
+            for tname in ("W_g", "W_x", "psi"):
+                jname = tname.lower()
+                yield f"unet.Att{i}.{tname}.0", ("unet", f"att{i}", jname, "conv"), "conv"
+                yield f"unet.Att{i}.{tname}.1", ("unet", f"att{i}", f"{jname}_norm"), "norm"
+    for n in range(1, 5):
+        sa = f"self_attention{n}"
+        heads = sorted(k for k in unet[sa] if k.startswith("att_layer_"))
+        for head in heads:
+            for dim in ("2D", "3D"):
+                yield (f"unet.{sa}.{head}.global_pooling_{dim}.0",
+                       ("unet", sa, head, f"pool{dim.lower()}_conv"), "conv")
+        yield f"unet.{sa}.conv.0", ("unet", sa, "fuse_conv", "conv"), "conv"
+        yield f"unet.{sa}.conv.1", ("unet", sa, "fuse_norm"), "norm"
+    yield "unet.Conv_1x1", ("unet", "final_conv", "conv"), "conv"
+
+
 def _sub(tree: Dict[str, Any], path) -> Any:
     for p in path:
         tree = tree[p]
@@ -95,6 +147,23 @@ def _get(tree: Dict[str, Any], path) -> np.ndarray:
 
 def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _norm_tensors(prefix: str, params, stats, path) -> Dict[str, torch.Tensor]:
+    """A norm module's tensors: a batch norm's four and its
+    ``num_batches_tracked``, a GroupNorm's scale and bias, none for an
+    InstanceNorm2d (no parameters, so no entry in the tree)."""
+    norm = _sub(params, path[:-1]).get(path[-1], {})
+    if "gn" in norm:
+        return {f"{prefix}.weight": _t(_get(params, path + ("gn", "scale"))),
+                f"{prefix}.bias": _t(_get(params, path + ("gn", "bias")))}
+    if "bn" in norm:
+        return {f"{prefix}.weight": _t(_get(params, path + ("bn", "scale"))),
+                f"{prefix}.bias": _t(_get(params, path + ("bn", "bias"))),
+                f"{prefix}.running_mean": _t(_get(stats, path + ("bn", "mean"))),
+                f"{prefix}.running_var": _t(_get(stats, path + ("bn", "var"))),
+                f"{prefix}.num_batches_tracked": torch.tensor(0)}
+    return {}
 
 
 def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -111,16 +180,7 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if "bias" in _sub(params, path + ("conv",)):   # ResNet's are bias-free
                 sd[f"{prefix}.bias"] = _t(_get(params, path + ("conv", "bias")))
         else:
-            norm = _sub(params, path[:-1]).get(path[-1], {})   # {} for InstanceNorm
-            if "gn" in norm:
-                sd[f"{prefix}.weight"] = _t(_get(params, path + ("gn", "scale")))
-                sd[f"{prefix}.bias"] = _t(_get(params, path + ("gn", "bias")))
-            elif "bn" in norm:
-                sd[f"{prefix}.weight"] = _t(_get(params, path + ("bn", "scale")))
-                sd[f"{prefix}.bias"] = _t(_get(params, path + ("bn", "bias")))
-                sd[f"{prefix}.running_mean"] = _t(_get(stats, path + ("bn", "mean")))
-                sd[f"{prefix}.running_var"] = _t(_get(stats, path + ("bn", "var")))
-                sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+            sd.update(_norm_tensors(prefix, params, stats, path))
     if "cre" not in params:
         return sd
     corr = _get(params, ("cre", "q_conv_corr", "conv", "kernel"))
@@ -128,6 +188,26 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd["cre.q.0.weight"] = _t(np.transpose(np.concatenate([corr, fm], axis=2),
                                            (3, 2, 0, 1)))
     sd["cre.q.0.bias"] = _t(_get(params, ("cre", "q_conv_fm", "conv", "bias")))
+    return sd
+
+
+def lgca_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX LGCANetV3's ``{'params', 'batch_stats'}`` tree (numpy leaves)
+    → the port's ``state_dict`` with the upstream names: kernels (kh, kw, I,
+    O) or (kd, kh, kw, I, O) → (O, I, kh, kw) or (O, I, kd, kh, kw); biases
+    where the conv has one; a norm's tensors as :func:`state_dict_from_jax`
+    carries them."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for prefix, path, kind in _lgca_pairs(params):
+        if kind == "conv":
+            k = _get(params, path + ("kernel",))
+            sd[f"{prefix}.weight"] = _t(np.transpose(k, (k.ndim - 1, k.ndim - 2)
+                                                     + tuple(range(k.ndim - 2))))
+            if "bias" in _sub(params, path):
+                sd[f"{prefix}.bias"] = _t(_get(params, path + ("bias",)))
+        else:
+            sd.update(_norm_tensors(prefix, params, stats, path))
     return sd
 
 
@@ -168,7 +248,8 @@ def load_into(model: torch.nn.Module, state_dict: Dict[str, Any]) -> List[str]:
     """Load ``state_dict`` into ``model``. Every model tensor must be covered
     (``num_batches_tracked`` excepted); keys the model does not have — the
     upstream decoder stages past d4 and the CRE's unused ``w_context``/``out``
-    — are skipped and returned."""
+    of RP_Net, LGCANet_V3's ``forw4`` and attention ``w_q``/``w_k`` — are
+    skipped and returned."""
     own = model.state_dict()
     missing = [k for k in own if k not in state_dict
                and not k.endswith("num_batches_tracked")]

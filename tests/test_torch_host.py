@@ -187,3 +187,55 @@ def test_host_dice_matches_jax():
     out = dice_score_seperate(chans_p, chans_t, num_class=3, decimal=3)
     assert out == jax_dice_score_seperate(chans_p, chans_t, num_class=3, decimal=3)
     assert out[1] is None and out[0] is not None
+
+
+def test_lgca_defaults_match_jax():
+    """The LGCANet_V3 keys: ``context_net_downsample_scale`` from the JAX
+    Config, and ``lgca_slices``, ``net_UNet`` and ``feature_scale``, which
+    the JAX package defaults in its code, as its sampler and factory read
+    them from a config without them."""
+    from rpnet_tpu.models.factory import build_lgcanet as jax_build_lgcanet
+    from rpnet_tpu_torch.models.factory import build_lgcanet
+
+    cfg, jcfg = config.Config({}), jax_config.Config({})
+    assert cfg["context_net_downsample_scale"] == jcfg["context_net_downsample_scale"]
+    assert cfg["lgca_slices"] == 8          # rpnet_tpu/episode/lgca_data.py:60
+    raw = {"roi_names": ["Liver", "Spleen", "Kidney L"]}
+    jmodel = jax_build_lgcanet(jax_config.Config(raw))
+    model = build_lgcanet(raw)
+    assert (model.output_ch, model.unet.attention_gates) == (jmodel.output_ch, False)
+    assert cfg["feature_scale"] == jmodel.feature_scale and cfg["net_UNet"] == "U_Net"
+    assert model.unet.Conv1.conv[0].out_channels == 64
+    gated = build_lgcanet(dict(raw, net_UNet="AttU_Net", feature_scale=8))
+    assert gated.unet.attention_gates and gated.unet.Conv1.conv[0].out_channels == 8
+    assert jax_build_lgcanet(jax_config.Config(dict(raw, net_UNet="AttU_Net"))).attention_gates
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_lgca_sampler_matches_jax(datasets, mode):
+    """``LGCAVolumeSampler``: the same working shape, volume, masks and
+    slices, array for array, and in train mode the same ``slice_idx`` from
+    the same ``RandomState`` stream, on 44² volumes of 18 slices padded and
+    cropped to a 32 × 48 × 32 working shape; a missing ROI file gives an
+    empty mask channel in both."""
+    from rpnet_tpu.episode.lgca_data import LGCAVolumeSampler as JaxLGCAVolumeSampler
+    from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
+
+    _, tp = datasets
+    raw = dict(roi_names=["Liver", "Spleen", "Kidney L"], num_slice=20, num_x=30, num_y=40,
+               lgca_slices=5, context_net_downsample_scale=[2, 2, 1])
+    ours = LGCAVolumeSampler(tp["data_dir"], tp["test_csv"], config.Config(raw), mode=mode)
+    ref = JaxLGCAVolumeSampler(tp["data_dir"], tp["test_csv"], jax_config.Config(raw),
+                               mode=mode)
+    assert len(ours) == len(ref) == 4 and ours.shape == ref.shape == (32, 64, 32)
+    rng_a, rng_b = np.random.RandomState(6), np.random.RandomState(6)
+    for rep in range(2):                  # the second pass reads the volume cache
+        for j in range(len(ours)):
+            a, b = ours.sample(j, rng=rng_a), ref.sample(j, rng=rng_b)
+            assert a["pid"] == b["pid"]
+            for k in ("volume", "downsampled_volume_mask", "slices", "mask", "slice_idx"):
+                assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{rep} {j} {k}")
+            assert not a["mask"][..., 2].any()            # no Kidney L in this set
+            assert a["slices"].shape[0] == (5 if mode == "train" else 32)
+    assert not ours._vol_cache[ours.filenames[0]][0].flags.writeable

@@ -182,10 +182,11 @@ def test_train_cli_refuses_to_fall_back_to_cpu(tmp_path, monkeypatch):
                                        ("unet_normalize_type", "LayerNorm"),
                                        ("optimizer", "rmsprop")])
 def test_train_step_refuses_what_is_not_ported(key, value, tmp_path):
-    """What the port's training still refuses: LGCANet_V3 in the train CLI
-    (not ported yet; the JAX CLI trains it), and what the JAX package
-    refuses too: a ``unet_normalize_type`` its ``Norm2d`` does not know and
-    an optimizer its ``make_optimizer`` does not know."""
+    """What the port's training still refuses: LGCANet_V3 with a
+    ``mesh_shape`` in the train CLI (the port trains it on one card; the
+    JAX CLI's mesh branch is ROADMAP.md queue 1 item 8), and what the JAX
+    package refuses too: a ``unet_normalize_type`` its ``Norm2d`` does not
+    know and an optimizer its ``make_optimizer`` does not know."""
     from rpnet_tpu.models.blocks import Norm2d
     from rpnet_tpu.train.trainer import make_optimizer as jax_make_optimizer
     from rpnet_tpu_torch.models.factory import build_rpnet
@@ -195,8 +196,8 @@ def test_train_step_refuses_what_is_not_ported(key, value, tmp_path):
     if key == "net":
         ypath = str(tmp_path / "lgca.yml")
         with open(ypath, "w") as f:
-            yaml.safe_dump(dict(cfg, out_dir=str(tmp_path / "out")), f)
-        with pytest.raises(NotImplementedError, match="LGCANet_V3"):
+            yaml.safe_dump(dict(cfg, mesh_shape={"data": 2}, out_dir=str(tmp_path / "out")), f)
+        with pytest.raises(NotImplementedError, match="LGCANet_V3 with mesh_shape"):
             torch_cli.main(["--yaml", ypath, "--platform", "cpu"])
     elif key == "unet_normalize_type":
         with pytest.raises(NotImplementedError, match="LayerNorm"):
