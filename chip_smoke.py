@@ -1,17 +1,33 @@
 #!/usr/bin/env python3
 """Bring-up check of rpnet_tpu_torch on one NVIDIA GPU (an H100 for sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases name,name,...]
+
+With no argument every phase runs, in the order below; ``--phases`` runs
+the named ones alone, with the phases whose results they read (``main``
+for ``eval-switches``, ``deform`` and ``serve``; ``trained`` for ``serve``;
+``training`` for ``train-switches`` and ``train-deform``; ``lgca-train``
+for ``lgca-eval`` and ``lgca-profile``) and the build; the kernel JSON then lists the rows
+whose checks ran, with the launches of the path phases that ran (null,
+and no ``launches_by_run`` entry, for a path phase that did not). Phase
+names in brackets below.
 
 Phases, each of which raises on failure (exit code 1, no result line):
-  1. build  — compile every kernel of the eval and training paths and of the
+  1. build [build] — compile every kernel of the eval and training paths and of the
      opt-in correlation forwards from ops/csrc/ (one nvcc per source, all
      started together) for sm_90a, printing ptxas' register/shared-memory
      report, the bf16 forward's design, shared memory and blocks an SM, the
      f32 forward's, the band kernel's and the C-strided kernel's (both
      dtypes) and the backward's designs, shared memory, blocks an SM,
-     registers and spills;
-  2. kernels — call each kernel's wrapper on the card at the main paths'
+     registers and spills; beside them the host NRRD decoder
+     (native/nrrd_cache.cpp, g++ and zlib, whose versions it prints);
+  native-io [native-io] — every NRRD of the main path's dataset read
+     through the raw cache (core/native_cache.read_cached) equal byte for
+     byte to the Python codec (nrrd_io.read); one CT volume's read seconds
+     by each reader, and the raw cache's first and warm reads; phase 3 then
+     requires its sampler to have read every volume file through the raw
+     cache (``EpisodeSampler.io_reads``);
+  2. kernels [kernels] — call each kernel's wrapper on the card at the main paths'
      shapes, the eval shape (the first episode's query slices, 64×64,
      C=256, r=5, bf16; and C=512 at 32×32 and 64×64, the VGG and ResNet
      backbones' eval shapes), the training shape (48 slices, f32; and
@@ -38,7 +54,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      past the fm1 it keeps resident, W = 12 and 40, r = 1, 2, in both
      dtypes), all on NaN-poisoned outputs. Kernels and plain versions are
      timed with CUDA events (``rpnet_tpu_torch.utils.timing.cuda_ms``);
-  2b. sweep kernels — the kernel sweep's own two kernels
+  2b. sweep kernels [sweep-kernels] — the kernel sweep's own two kernels
      (``rpnet_tpu_torch.bench_tools.corr_sweep``, both on the band body of
      tensor-core products: corr_swapped, planar f32, and corr_rotmxu, NHWC
      with d² or 128 zero-padded lanes) against their plain versions at the
@@ -48,11 +64,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      transpose and cast) and at ``SWEEP_EDGES`` in both dtypes (corr_rotmxu
      with d² and 128 lanes), on outputs the caching allocator had filled
      with NaN; padding lanes exactly zero;
-  2c. the kernel sweep — ``corr_sweep.main()`` at 32×64×64×256, r=5, with
+  2c. the kernel sweep [sweep] — ``corr_sweep.main()`` at 32×64×64×256, r=5, with
      the launch counts set to 0 just before and read just after: no line
      FAILED or missed its tolerance, and each kernel launched as often as
      its lines call it;
-  2d. grid_sample — CUDA ``F.grid_sample`` (bilinear, zeros,
+  2d. grid_sample [grid-sample] — CUDA ``F.grid_sample`` (bilinear, zeros,
      align_corners=False, f32) against a plain torch evaluation of the JAX
      gather formula ((x+1)·S − 1)/2 on the card, at every pair of
      knife-edge coordinates (exact integer and half-integer indices and
@@ -61,18 +77,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      then the affine fit (50 steps, fit_scale 1) on a sharp input (binary
      squares plus noise) on the card and on the CPU, theta's difference
      logged;
-  3. main path — the port's eval CLI (``rpnet_tpu_torch.cli.test_rpnet``)
+  3. main path [main] — the port's eval CLI (``rpnet_tpu_torch.cli.test_rpnet``)
      on a synthetic Abd-110-shaped dataset at 272² volumes / 256² crops,
      configured by yamls/example.yml (U-Net d4, r=5, 10 refinement
      iterations, 50 affine steps at reg_fit_scale 4, bf16 network), with the
      kernels' launch counts set to 0 just before and read just after; every
      kernel must have run 11 times per episode (once per support, once per
      refinement iteration), no episode may fail, every Dice must be finite;
-  3b. eval switches — the same CLI, episodes and weights under each opt-in
+  3b. eval switches [eval-switches] — the same CLI, episodes and weights under each opt-in
      forward (pallas_mxu, csub, pdot, RPNET_ROT_PACK=1): 11 launches per
      episode of the selected kernel (pack: select for odd slice counts),
      refinement masks agreeing with phase 3's on > 99.9% of pixels;
-  3c. data paths — the same CLI on the same episodes and weights for 3
+  3c. data paths [data-paths] — the same CLI on the same episodes and weights for 3
      passes on each eval data path: the spec path (the example's defaults,
      a device volume cache of 16: index-only episodes gathered on the card),
      the prefetch path (cache 0, num_workers 4) and the plain host path
@@ -83,34 +99,40 @@ Phases, each of which raises on failure (exit code 1, no result line):
      ``torch.cuda.set_sync_debug_mode("warn")``: no synchronizing call; and
      one warm spec episode under ``torch.profiler`` (device time by kernel
      group, device operations, busy share);
-  3d. breadth — the CLI on 2 episodes under ``backbone: vgg`` (scale 8),
+  3d. breadth [breadth] — the CLI on 2 episodes under ``backbone: vgg`` (scale 8),
      ``backbone: resnet``, ``mask_feature_map: x2``, ``use_relation_enc:
      concat`` and ``use_all_supports`` + ``multishot_fusion`` with 2 shots
      and ``n_way: 2``: Wa·Sh + 10 launches an episode (none under concat),
      no failed episode, every Dice finite;
-  3r. registration reference — ``register_episode`` with 50 demons steps
+  3r. registration reference [reg-reference] — ``register_episode`` with 50 demons steps
      on the first episode's first 4 query slices at 256², matmul structure
      (fit_scale 4) and gather structure, on the card and on the CPU:
      warped labels agreeing on > 99.9% of pixels, the warped image within
      0.1 (5e-4 on average), the raw flow within half its largest value; the
      affine-only and demons priors' Dice logged; ``deeds_fit`` (128² grid,
      15² shifts) card vs CPU within 1e-4;
-  3e. deformable eval — phase 3's CLI, episodes and weights with
+  3e. deformable eval [deform] — phase 3's CLI, episodes and weights with
      ``do_deformable: True`` for 2 passes, under ``reg_sampler: matmul``
      and ``gather``: 11 launches an episode, no failed episode, every Dice
      finite; each episode's demons prior Dice beside phase 3's affine-only
      one and the warm pass's episodes/s logged; under matmul one warm spec
      dispatch under the sync debug mode (no synchronizing call) and one
      warm episode profiled (device operations);
-  3f. eval_3d — the eval CLI with ``yamls/example_3d.yml``'s settings on 2
+  serve-routes [serve-routes] — the CRE alone at the eval shape under each
+     opt-in forward's switch (rows 5, 6, 2, 3) exported on the card, saved
+     and loaded: one node of that route's custom op in the graph; the
+     reloaded program, run with no switch set, equal to the live CRE call,
+     the row's launch count moved by one (``launches_by_run``
+     ``serve-routes``);
+  3f. eval_3d [eval-3d] — the eval CLI with ``yamls/example_3d.yml``'s settings on 2
      synthetic Liver volumes of 80×272×272 (2 windows each): 11 launches a
      window, no failed volume, finite Dice, predictions of the volume's
      shape;
-  4. reference — the full-width model (random seeded weights, 3 refinement
+  4. reference [bf16-rounding, reference] — the full-width model (random seeded weights, 3 refinement
      iterations) on a small input, f32 with TF32 off, on the card vs on the
      CPU (plain versions), for the U-Net, VGG and ResNet backbones: logits
      within 2e-3, masks agreeing on > 99.9%;
-  5. training path — the port's train CLI (``rpnet_tpu_torch.cli.train``)
+  5. training path [training] — the port's train CLI (``rpnet_tpu_torch.cli.train``)
      on a synthetic dataset of the train classes (Spleen, Kidney L,
      Kidney R; 48×272×272 volumes), configured by yamls/example.yml's
      training block at full width (1-way 1-shot, k=12, batch_size 4, U-Net
@@ -119,14 +141,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
      set to 0 just before and read just after: 5 forward and 5 backward
      correlation launches per step; every loss finite, the parameters
      moved, and the written epoch_000.pth loads into the eval model;
-  5b. training switches — 2 steps of the same CLI from the same seed under
+  5b. training switches [train-switches] — 2 steps of the same CLI from the same seed under
      pallas_mxu, csub and rot + RPNET_ROT_PACK=1: 5 launches of the selected
      forward and 5 of the backward per step, the first loss within 1e-3
      relative of phase 5's;
-  5c. deformable training — 2 steps of the train CLI with
+  5c. deformable training [train-deform] — 2 steps of the train CLI with
      ``do_deformable: True`` (50 demons steps, matmul structure): 5 forward
      and 5 backward launches a step, finite losses, parameters moved;
-  5d. training breadth — the train CLI at full width (the example's
+  5d. training breadth [train-breadth, train-profile] — the train CLI at full width (the example's
      training block) for 1 step each (2 for vgg and bfloat16) under
      ``backbone: vgg`` (scale 8), ``backbone: resnet``, ``mask_feature_map:
      x2``, ``use_relation_enc: concat``, ``unet_normalize_type: GroupNorm``,
@@ -137,7 +159,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      warm-started encoder within 1e-3 of the state dict), the written
      checkpoint loading into the eval model of the same config, peak memory
      logged;
-  6. training reference — one full-width train step (E=2, k=2, 64², SGD at
+  6. training reference [train-reference] — one full-width train step (E=2, k=2, 64², SGD at
      lr 1 so the change is the gradient) on the card vs on the CPU, f32 with
      TF32 off, for the U-Net, VGG and ResNet backbones and the U-Net under
      ``compute_dtype: bfloat16`` (soft masks: see ``TRAIN_REFERENCE``): loss
@@ -145,33 +167,51 @@ Phases, each of which raises on failure (exit code 1, no result line):
      tensor's change within 3e-2 (norm of the difference over norm of the
      change; the batch statistics of two 64² slices carry f32 differences in
      the order of sums into the deep layers' gradients, ~1e-2 measured);
-  3g. trained checkpoint — the train CLI trains a U-Net on the card
+  3g. trained checkpoint [trained] — the train CLI trains a U-Net on the card
      (``TRAINED_STEPS`` steps of 4 episodes of ``TRAINED_K`` slices, AdamW at
      ``TRAINED_LR``), then the eval CLI runs phase 3's episodes on it in f32
      and in bf16: the f32 masks' foreground share above 1%, the fewshot Dice
      finite (logged beside the prior's), bf16 within 0.01 Dice of f32 at the
      last iteration and masks agreeing on more than 98% of pixels at every
      iteration; the phase's seconds logged;
-  lgca-reference — the full-width LGCANet_V3 (random seeded weights, 4
+  serve [serve] — the main path's configuration exported by the port's
+     ``cli.export`` on the card (bf16, ``slices`` = slice_bucket; export
+     seconds, graph nodes and artifact size logged) and served by
+     ``cli.serve`` on phase 3's episodes and weights (its seeded init as a
+     ``.pth``) for 4 passes, beside the live CLI on the same ``.pth`` for 4
+     passes, both timed alike (the warm passes' episodes/s logged): per-episode
+     Dice within 1e-3 of phase 3's, 11 launches of row 1 an episode counted
+     by the custom op's CUDA implementation (``launches_by_run`` ``serve``);
+     then one untimed served pass of the same artifact with phase 3g's
+     trained weights: Dice within 1e-3 of phase 3g's live bf16 run and
+     last-iteration masks agreeing on > 99.9% of pixels
+     (``serve-trained``). In f32 (``compute_dtype: float32``): the live
+     runner padding each episode to the artifact's slices, as the served
+     runner does, against the served runner, cuDNN on as the CLIs run it:
+     every metric within 1e-5; and, a second witness, ``cli.serve``
+     against the live f32 CLI with cuDNN and TF32 off (their batches
+     differ, and cuDNN picks its algorithms by batch size): within 1e-5
+     (``serve-f32``);
+  lgca-reference [lgca-reference] — the full-width LGCANet_V3 (random seeded weights, 4
      ROIs) on the card vs on the CPU, f32 with TF32 off, on a (1, 32, 64,
      64, 1) volume and 4 slices of 128²: one eval forward (``seg_2d`` and
      ``dsv`` within ``LGCA_REF_BOUNDS`` of their largest magnitude) and one
      SGD step at lr 1 (the loss, and each parameter's change against the
      norm of the change);
-  lgca-train — the port's train CLI with ``yamls/example_lgca.yml`` (U_Net,
+  lgca-train [lgca-train] — the port's train CLI with ``yamls/example_lgca.yml`` (U_Net,
      BatchNorm2d, full widths, 8 slices of 288² and a 144³ context volume a
      step, 4 ROIs, AdamW) on 2 synthetic 280×272×272 volumes for 4 steps,
      launch counts set to 0 just before and read just after: no correlation
      kernel runs (the LGCA path has none); finite losses, warm s/step and
      peak memory logged, the checkpoint loading into the eval model;
-  lgca-eval — the port's eval CLI on the synthetic eval volume with that
+  lgca-eval [lgca-eval, lgca-profile] — the port's eval CLI on the synthetic eval volume with that
      checkpoint: 18 forwards of 16 slices, no correlation launch, no failed
      volume; volumes/s, peak memory and per-ROI Dice logged; then one warm
      train step and one warm eval volume under ``torch.profiler`` (device
      time by operator group: 3D and 2D convolutions, attention, norms,
-     other), and the LGCA phases' seconds (``[phases]``).
+     other).
 
-Then it prints the kernel table (a ``kernels`` line and a ``{"kernels":
+Each phase's seconds are logged as it ends (``[phases]``). Then it prints the kernel table (a ``kernels`` line and a ``{"kernels":
 ...}`` JSON line), the card's name and power limit from nvidia-smi, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of the
 JAX package, and fails without a CUDA device or without the package beside it.
@@ -179,6 +219,8 @@ JAX package, and fails without a CUDA device or without the package beside it.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import math
 import os
@@ -284,12 +326,22 @@ def phase_build():
 
     from rpnet_tpu_torch.ops import kernels
 
+    from rpnet_tpu_torch.core import native_cache
+
     t0 = time.time()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:   # one nvcc per source, one g++
+        native = pool.submit(native_cache.build, verbose=True)
         list(pool.map(lambda k: kernels.build(k, verbose=True), KERNELS))
+        native_lib = native.result()
     for k in KERNELS:
         kernels.load(k)
     log(f"[build] {', '.join(KERNELS)} built for sm_90a in {time.time() - t0:.2f}s")
+    cxx = subprocess.run([native_cache.CXX, "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    lib = native_cache._load_library()
+    lib.zlibVersion.restype = ctypes.c_char_p
+    log(f"[build] native/nrrd_cache.cpp built by {cxx} against zlib "
+        f"{lib.zlibVersion().decode()}: {os.path.relpath(native_lib, ROOT)}")
     plan = kernels.local_corr_bf16_plan(256, 5)
     log(f"[build] local_corr.cu bf16 design: TMA + wgmma (m64n32k16, one producer warp, "
         f"four consumer warpgroups, fm1 in registers), {plan['smem_bytes']} bytes of shared memory a block, "
@@ -720,8 +772,6 @@ def phase_sweep():
 def make_dataset():
     from rpnet_tpu_torch.core.synthetic import generate_dataset
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
     t0 = time.time()
     paths = generate_dataset(os.path.join(WORK, "data"), n_train=1,
                              n_test=N_EVAL_VOLUMES, shape=(48, 272, 272),
@@ -808,6 +858,24 @@ class tf32_off:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
 
 
+class cudnn_off:
+    """cuDNN and the matmuls' TF32 off for a block (torch's own CUDA
+    convolutions, whose per-slice results do not depend on the batch
+    size), then restored."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = (torch.backends.cudnn.enabled, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.enabled = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.enabled, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
 class correlation_dtypes:
     """The dtypes the training path's correlation wrappers receive in a
     block (the default route's forward and the backward), as a set of
@@ -840,23 +908,62 @@ class correlation_dtypes:
 
 class recorded_episodes:
     """Every episode's metrics as the CLI settles it (``EpisodeRunner.finalize``
-    wrapped: it runs after the episode's own wait, so it adds no sync)."""
+    wrapped: it runs after the episode's own wait, so it adds no sync); with
+    ``arrays``, every episode queued with its prediction and prior too (the
+    runner's ``arrays``), which the records then hold."""
+
+    def __init__(self, arrays: bool = False):
+        self.arrays = arrays
 
     def __enter__(self):
         from rpnet_tpu_torch.episode import pipeline
 
-        self.cls, self.orig, results = pipeline.EpisodeRunner, pipeline.EpisodeRunner.finalize, []
-        orig = self.orig
+        self.cls, results = pipeline.EpisodeRunner, []
+        self.orig = (self.cls.finalize, self.cls._queue)
+        finalize_, queue_ = self.orig
 
         def finalize(runner, d):
-            results.append(orig(runner, d))
+            results.append(finalize_(runner, d))
             return results[-1]
 
+        def queue(runner, *args):
+            return queue_(runner, *args[:-1], True)
+
         self.cls.finalize = finalize
+        if self.arrays:
+            self.cls._queue = queue
         return results
 
     def __exit__(self, *exc):
-        self.cls.finalize = self.orig
+        self.cls.finalize, self.cls._queue = self.orig
+
+
+class recorded_samplers:
+    """The ``EpisodeSampler``s made in a block (their ``io_reads`` say which
+    reader loaded each volume file)."""
+
+    def __enter__(self):
+        from rpnet_tpu_torch.episode.sampler import EpisodeSampler
+
+        self.cls, self.orig, made = EpisodeSampler, EpisodeSampler.__init__, []
+        orig = self.orig
+
+        def init(sampler, *args, **kw):
+            orig(sampler, *args, **kw)
+            made.append(sampler)
+
+        self.cls.__init__ = init
+        return made
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.orig
+
+
+def io_reads(samplers):
+    """The samplers' volume reads by reader, summed."""
+    from collections import Counter
+
+    return dict(sum((s.io_reads for s in samplers), Counter()))
 
 
 def run_eval_cli(yaml_path, env=None, hook=True):
@@ -881,7 +988,8 @@ def run_eval_cli(yaml_path, env=None, hook=True):
 
     handle = torch.nn.modules.module.register_module_forward_hook(record) if hook else None
     try:
-        with switched(env or {}), recorded_episodes() as episodes:
+        with switched(env or {}), recorded_episodes() as episodes, \
+                recorded_samplers() as samplers:
             reset_launches()
             t0 = time.time()
             results = test_rpnet.main(["--yaml", yaml_path])
@@ -891,6 +999,7 @@ def run_eval_cli(yaml_path, env=None, hook=True):
         if handle is not None:
             handle.remove()
     results["wall"] = time.time() - t0
+    results["io_reads"] = io_reads(samplers)
     n_eps = results["episodes"]
     if results["failed_episodes"]:
         raise AssertionError(f"{yaml_path}: {results['failed_episodes']} of {n_eps} "
@@ -916,6 +1025,10 @@ def phase_main_path(yaml_path):
     log(f"[main] {n_eps} episodes, {results['episodes_per_sec']:.3f} episodes/s "
         f"(first pass, includes warm-up; CLI wall {results['wall']:.1f}s), "
         f"launches {launches}")
+    reads = results["io_reads"]
+    log(f"[native-io] the main path's sampler read its volume files through: {reads}")
+    if not reads.get("rawcache") or reads.get("nrrd_io") or reads.get("native"):
+        raise AssertionError(f"the main path did not read through the native raw cache: {reads}")
     return results, launches, outputs, episodes
 
 
@@ -1916,7 +2029,9 @@ def phase_trained_eval(train_cfg, eval_cfg):
     last iteration above 1%, the f32 fewshot Dice finite (logged beside the
     prior's), and bf16 against f32 on the card within the bounds of
     ``tests/test_torch_bf16_eval.py``: last-iteration Dice within 0.01,
-    masks agreeing on more than 98% of pixels at every iteration."""
+    masks agreeing on more than 98% of pixels at every iteration. Returns
+    the checkpoint and the bf16 run's episodes and last-iteration masks
+    (phase serve holds its served run against them)."""
     import torch
     import yaml
 
@@ -1945,13 +2060,13 @@ def phase_trained_eval(train_cfg, eval_cfg):
         with open(path, "w") as f:
             yaml.safe_dump(dict(eval_cfg, ckpt=res["checkpoint"], compute_dtype=dtype,
                                 out_dir=os.path.join(WORK, f"out_trained_{dtype}")), f)
-        results, launches, (masks, _), _ = run_eval_cli(path)
-        runs[dtype] = (results, masks)
+        results, launches, (masks, _), episodes = run_eval_cli(path)
+        runs[dtype] = (results, masks, episodes)
         r = next(iter(results["classes"].values()))
         log(f"[trained-eval-{dtype}] {results['episodes']} episodes: mean dice affine "
             f"(prior) {r['affine'][0]:.4f}, fewshot {r['fewshot'][0]:.4f}, by iteration "
             f"{[round(v[0], 4) for v in r['refinement'].values()]}, launches {launches}")
-    (r32, m32), (r16, m16) = runs["float32"], runs["bfloat16"]
+    (r32, m32, _), (r16, m16, e16) = runs["float32"], runs["bfloat16"]
     # masks: one (iterations, slices, H, W) tensor per episode
     fg = sum(float(m[-1].float().sum()) for m in m32) / sum(m[-1].numel() for m in m32)
     agree = [sum(int((a[i] == b[i]).sum()) for a, b in zip(m32, m16))
@@ -1971,7 +2086,8 @@ def phase_trained_eval(train_cfg, eval_cfg):
     if not (abs(d32 - d16) < 0.01 and min(agree) > 0.98):
         raise AssertionError(f"bf16 vs f32 on the trained checkpoint: Dice {d16} vs "
                              f"{d32}, agreement {agree}")
-    return t_train
+    return {"train_s": t_train, "checkpoint": res["checkpoint"], "bf16_episodes": e16,
+            "bf16_masks": [m[-1].numpy() for m in m16]}
 
 
 LGCA_ROIS = ("Liver", "Spleen", "Kidney L", "Kidney R")
@@ -2284,6 +2400,303 @@ def log_lgca_profile(tag: str, what: str, prof, wall_ms: float):
     log_device_profile(tag, what, prof, wall_ms)
 
 
+
+def phase_native_io(paths):
+    """Phase native-io: every NRRD of the main path's dataset read through
+    the port's raw cache (``core/native_cache.read_cached``, a fresh cache
+    directory) equal byte for byte to the port's Python codec
+    (``nrrd_io.read``), and one CT volume's seconds: the Python codec, the
+    native decoder, the first read through the raw cache (the conversion
+    included) and a warm one. The files were just written: the page cache
+    is warm for every read."""
+    import numpy as np
+
+    from rpnet_tpu_torch.core import native_cache, nrrd_io
+
+    cache_dir = os.path.join(WORK, "rawcache")
+    names = sorted(f for f in os.listdir(paths["data_dir"]) if f.endswith(".nrrd"))
+    for name in names:
+        path = os.path.join(paths["data_dir"], name)
+        (a, meta), (b, _) = native_cache.read_cached(path, cache_dir), nrrd_io.read(path)
+        if not meta.get("cached") or a.dtype != b.dtype or a.shape != b.shape \
+                or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{name}: the raw cache read {a.dtype}{a.shape} {meta}, "
+                                 f"nrrd_io {b.dtype}{b.shape}, not byte for byte equal")
+    ct = os.path.join(paths["data_dir"], next(n for n in names if n.endswith("_clean.nrrd")))
+    first_dir = os.path.join(WORK, "rawcache_first")
+
+    def secs(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    t_py = secs(lambda: nrrd_io.read(ct))
+    t_native = secs(lambda: native_cache.read(ct))
+    t_first = secs(lambda: native_cache.read_cached(ct, first_dir))
+    t_warm = secs(lambda: native_cache.read_cached(ct, first_dir))
+    arr = nrrd_io.read(ct)[0]
+    log(f"[native-io] {len(names)} NRRD files read through the raw cache equal byte for byte "
+        f"to nrrd_io; one {arr.dtype} {'x'.join(map(str, arr.shape))} CT volume "
+        f"({arr.nbytes} bytes, gzip {os.path.getsize(ct)} bytes; page cache warm): nrrd_io "
+        f"{t_py:.4f}s, native decoder {t_native:.4f}s, raw cache first read (conversion "
+        f"included) {t_first:.4f}s, warm {t_warm:.4f}s")
+    return {"nrrd_io_s": t_py, "native_s": t_native, "first_s": t_first, "warm_s": t_warm}
+
+
+def run_serve_cli(cfg, label, artifact, ckpt, arrays=False, **kw):
+    """``cli.serve`` on ``artifact`` with ``cfg`` updated by ``kw`` (its own
+    out_dir), launch counts set to 0 just before and read just after, every
+    episode recorded (with ``arrays`` its prediction too, fetched as the
+    live CLI does not: such a pass is not timed against it) → (results,
+    launches, episodes, the passes' (stage_timing, pass_wall) lines from
+    log_serve)."""
+    import torch
+    import yaml
+
+    from rpnet_tpu_torch.cli import serve
+
+    out_dir = os.path.join(WORK, f"out_{label}")
+    path = os.path.join(WORK, f"serve_{label}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(cfg, out_dir=out_dir, **kw), f)
+    with switched({}), recorded_episodes(arrays=arrays) as episodes:
+        reset_launches()
+        t0 = time.time()
+        results = serve.main(["--artifact", artifact, "--yaml", path, "--ckpt", ckpt])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    results["wall"] = time.time() - t0
+    if results["failed_episodes"]:
+        raise AssertionError(f"served {label}: {results['failed_episodes']} episodes failed")
+    with open(os.path.join(out_dir, "log_serve")) as f:
+        lines = [l.strip() for l in f]
+    passes = list(zip([l for l in lines if l.startswith("stage_timing")],
+                      [l for l in lines if l.startswith("pass_wall")]))
+    return results, launches, episodes, passes
+
+
+def export_cli(cfg, label, ckpt):
+    """``cli.export`` on the card for ``cfg`` → (artifact directory, manifest)."""
+    import yaml
+
+    from rpnet_tpu_torch.cli import export
+
+    out = os.path.join(WORK, f"artifact_{label}")
+    path = os.path.join(WORK, f"export_{label}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(cfg, ckpt=ckpt), f)
+    with switched({}):
+        export.main(["--yaml", path, "--out", out])
+    with open(os.path.join(out, "manifest.json")) as f:
+        return out, json.load(f)
+
+
+SERVE_RUNS = 4   # timed passes of the served and live bf16 runs; all but the first warm
+
+
+def runner_episodes(runner, config):
+    """Phase 3's episodes settled by ``runner`` as one pass of the eval CLI
+    settles them (its seeding, sampler and ``evaluate``; the lines it
+    prints dropped) → every episode's metrics."""
+    import io
+
+    import numpy as np
+
+    from rpnet_tpu_torch.cli import test_rpnet
+    from rpnet_tpu_torch.episode.sampler import EpisodeSampler
+
+    seed = int(config.get("seed", 0))
+    np.random.seed(seed)
+    random.seed(seed)
+    sampler = EpisodeSampler(config["data_dir"], config["eval_set_name"], config)
+    with recorded_episodes() as episodes, contextlib.redirect_stdout(io.StringIO()):
+        failures = test_rpnet.evaluate(runner, sampler, config)[-1]
+    if failures:
+        raise AssertionError(f"{failures} episodes failed outside the CLI")
+    return episodes
+
+
+def largest_diff(a, b):
+    """The largest difference of two runs' per-episode metrics."""
+    keys = ("dsc_affine", "dsc_fewshot", "ncc_warped", "ncc_raw")
+    pairs = [(x[k], y[k]) for x, y in zip(a, b) for k in keys] + \
+        [(x["dsc_refinement"][i], y["dsc_refinement"][i])
+         for x, y in zip(a, b) for i in x["dsc_refinement"]]
+    if len(a) != len(b) or any((u is None) != (v is None) for u, v in pairs):
+        raise AssertionError("the runs settled different episodes, or an episode's "
+                             "ground truth is empty in one run only")
+    return max(abs(u - v) for u, v in pairs if u is not None)
+
+
+def phase_serve(cfg, main_episodes, trained, card):
+    """Phase serve: the main path's configuration (U-Net, 256², r=5, 10
+    refinement iterations, 50 affine steps at reg_fit_scale 4, ``slices`` =
+    slice_bucket) exported by ``cli.export`` on the card, in bf16 and f32.
+
+    bf16: ``cli.serve`` on phase 3's episodes and weights (its seeded init
+    written as a ``.pth``) for ``SERVE_RUNS`` passes beside the live CLI on
+    the same ``.pth``, both timed alike (neither fetches its masks):
+    per-episode metrics within 1e-3 of phase 3's, row 1 launched 11 times
+    an episode by the custom op's CUDA implementation. Then one untimed
+    served pass with phase 3g's trained checkpoint (the same artifact: the
+    weights are inputs), its masks fetched: metrics within 1e-3 of phase
+    3g's live bf16 run, last-iteration masks agreeing with its on > 99.9%
+    of pixels.
+
+    f32 (``compute_dtype: float32``): the live runner padding each episode
+    to the artifact's slices (``EpisodeRunner(slices=...)``), so that its
+    convolutions see the program's batch, against the served runner on
+    phase 3's episodes, cuDNN on as the CLIs run: metrics within 1e-5.
+    Second witness: ``cli.serve`` against the live f32 CLI, whose batches
+    differ (each episode's own slice count), with cuDNN and TF32 off
+    (:class:`cudnn_off`): within 1e-5. Export seconds, graph nodes and
+    artifact size logged."""
+    import copy
+
+    import torch
+
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.episode.pipeline import EpisodeRunner
+    from rpnet_tpu_torch.models.factory import build_rpnet
+    from rpnet_tpu_torch.serve.export import load_artifact, make_artifact_runner
+
+    config = Config(cfg)
+    ckpt = os.path.join(WORK, "main_seed.pth")   # phase 3's weights (ckpt: null, seed 0)
+    model = build_rpnet(config, num_iter=config["n_test_iter_refinement"],
+                        seed=int(cfg.get("seed", 0)))
+    torch.save({"epoch": 0, "state_dict": model.state_dict()}, ckpt)
+    n_eps = len(main_episodes)
+
+    def warm_rates(passes):   # episodes/s of each warm pass (pass_wall lines)
+        return [round(n_eps / float(w.split()[1].rstrip("s")), 3) for _, w in passes[1:]]
+
+    def exported(dcfg, tag):
+        art, man = export_cli(dcfg, dcfg["compute_dtype"], ckpt)
+        size = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))
+        if man["correlation_ops"] != {"rpnet_torch.local_corr.default": 11}:
+            raise AssertionError(f"{tag}: the program's correlation nodes are "
+                                 f"{man['correlation_ops']}, expected 11 of local_corr")
+        log(f"[{tag}] export {man['export_seconds']:.2f}s, {man['graph_nodes']} graph "
+            f"nodes, artifact {size} bytes; {card}")
+        return art, man, {"export_s": man["export_seconds"], "nodes": man["graph_nodes"],
+                          "bytes": size}
+
+    def served(dcfg, tag, art, weights, runs, arrays=False):
+        _, launches, eps, passes = run_serve_cli(dcfg, tag, art, weights, arrays=arrays,
+                                                 n_runs=runs)
+        if launches != {"local_correlation": 11 * n_eps * runs}:
+            raise AssertionError(f"{tag}: launches {launches}, expected "
+                                 f"{11 * n_eps * runs} of local_correlation")
+        return launches, eps, passes
+
+    out = {}
+    # bf16
+    bcfg = dict(cfg, compute_dtype="bfloat16")
+    art, man, info = exported(bcfg, "serve")
+    _, _, _, live_passes = run_cli_config(bcfg, "serve_live", n_runs=SERVE_RUNS, ckpt=ckpt)
+    launches, eps, passes = served(bcfg, "serve", art, ckpt, SERVE_RUNS)
+    d_main = largest_diff(eps[:n_eps], main_episodes)
+    log(f"[serve] per-episode metrics within {d_main:.3g} of phase 3's (1e-3); warm passes "
+        f"{warm_rates(passes)} episodes/s served (last: {passes[-1][1]}; {passes[-1][0]}) "
+        f"against {warm_rates(live_passes)} live (last: {live_passes[-1][1]}; "
+        f"{live_passes[-1][0]}), both without fetching masks; launches {launches}; {card}")
+    if not d_main <= 1e-3:
+        raise AssertionError(f"served bf16 eval disagrees with phase 3: {d_main}")
+    out["serve"] = dict(info, launches=launches, served_eps=warm_rates(passes),
+                        live_eps=warm_rates(live_passes))
+
+    t_launches, t_eps, _ = served(bcfg, "serve-trained", art, trained["checkpoint"], 1,
+                                  arrays=True)
+    d_trained = largest_diff(t_eps, trained["bf16_episodes"][:n_eps])
+    masks = trained["bf16_masks"][:n_eps]
+    fg = sum(float(m.sum()) for m in masks) / sum(m.size for m in masks)
+    agree = sum(int((e["prediction"] == m).sum()) for e, m in zip(t_eps, masks)) \
+        / sum(m.size for m in masks)
+    log(f"[serve-trained] the bf16 artifact with phase 3g's trained weights: per-episode "
+        f"metrics within {d_trained:.3g} of phase 3g's live bf16 run (1e-3); last-iteration "
+        f"masks (foreground {fg:.4f} of the live pixels) agree on {agree:.6f} (> 0.999); "
+        f"launches {t_launches}")
+    if not (d_trained <= 1e-3 and agree > 0.999):
+        raise AssertionError(f"served bf16 eval on the trained weights disagrees with the "
+                             f"live run: Dice {d_trained}, masks {agree}")
+    out["serve-trained"] = {"launches": t_launches}
+
+    # f32
+    fcfg = dict(cfg, compute_dtype="float32")
+    art, man, info = exported(fcfg, "serve-f32")
+    rconfig = Config(fcfg).replace(n_iter_refinement=config["n_test_iter_refinement"])
+    live = EpisodeRunner(copy.deepcopy(model), rconfig, "cuda", slices=man["slices"])
+    program = make_artifact_runner(load_artifact(art, "cuda"), model.state_dict(),
+                                   rconfig, "cuda")
+    d_padded = largest_diff(runner_episodes(program, rconfig),
+                            runner_episodes(live, rconfig))
+    with cudnn_off():
+        _, _, live_eps, _ = run_cli_config(fcfg, "serve-f32_live", ckpt=ckpt)
+        launches, eps, _ = served(fcfg, "serve-f32", art, ckpt, 1)
+    d_live = largest_diff(eps, live_eps)
+    log(f"[serve-f32] per-episode metrics within {d_padded:.3g} of the live runner fed "
+        f"the same {man['slices']}-slice padded episodes, cuDNN on (1e-5); cli.serve within "
+        f"{d_live:.3g} of the live f32 CLI, both with cuDNN and TF32 off (1e-5); "
+        f"launches {launches}")
+    if not (d_padded <= 1e-5 and d_live <= 1e-5):
+        raise AssertionError(f"served f32 eval disagrees with the live path: padded runner "
+                             f"{d_padded}, CLI with cuDNN off {d_live}")
+    out["serve-f32"] = dict(info, launches=launches)
+    return out
+
+
+def phase_serve_routes(dq):
+    """Phase serve-routes: the CRE alone (``models/cre.py``, seeded, bf16,
+    eval) at the eval shape under each opt-in forward's switch (rows 5, 6,
+    2, 3), exported by ``torch.export`` on the card, saved and loaded: its
+    graph holds that route's custom op once; the reloaded program, run with
+    no switch set (the route is the artifact's), equals the live CRE call
+    under the switch, and the row's launch count moves by one."""
+    import torch
+
+    from rpnet_tpu_torch.models.cre import ContextCorrelationEncoder
+    from rpnet_tpu_torch.models.blocks import init_
+    from rpnet_tpu_torch.serve.export import graph_nodes
+
+    ops = {"local_correlation_band": "local_corr_band", "local_correlation_csub": "local_corr_csub",
+           "local_correlation_pdot": "local_corr_pdot",
+           "local_correlation_packed": "local_corr_packed"}
+    even = next((b for b in dq if b % 2 == 0), dq[0] + 1)   # pack takes pairs
+    out = {}
+    for i, (label, (env, wrapper)) in enumerate(EVAL_SWITCHES.items()):
+        B = even if label == "pack" else dq[0]
+        cre = ContextCorrelationEncoder(256, 5)
+        init_(cre, torch.Generator().manual_seed(40 + i))
+        cre = cre.to("cuda", torch.bfloat16).eval()
+        g = torch.Generator(device="cuda").manual_seed(50 + i)
+        fm1, fm2 = (torch.randn((B, 64, 64, 256), generator=g, device="cuda",
+                                dtype=torch.bfloat16) for _ in range(2))
+        path = os.path.join(WORK, f"serve_route_{label}.pt2")
+        with switched(env), torch.no_grad():
+            t0 = time.time()
+            torch.export.save(torch.export.export(cre, (fm1, fm2), strict=False), path)
+            t_export = time.time() - t0
+            live = cre(fm1, fm2)
+        program = torch.export.load(path)
+        nodes = [str(n.target) for n in graph_nodes(program)
+                 if str(n.target).startswith("rpnet_torch.")]
+        with torch.no_grad():
+            reset_launches()
+            served = program.module()(fm1, fm2)
+            torch.cuda.synchronize()
+            launches = read_launches()
+        diff = (served.float() - live.float()).abs().max().item()
+        log(f"[serve-routes] {label} ({env}): CRE at {B}x64x64x256 bf16 exported in "
+            f"{t_export:.2f}s, graph correlation nodes {nodes}, reloaded program run with no "
+            f"switch set: launches {launches}, max |served - live| {diff}")
+        if nodes != [f"rpnet_torch.{ops[wrapper]}.default"] or launches != {wrapper: 1} \
+                or not torch.equal(served, live):
+            raise AssertionError(f"serve-routes {label}: nodes {nodes}, launches {launches}, "
+                                 f"max difference {diff}")
+        out[wrapper] = launches
+    return out
+
+
 def gpu_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2296,26 +2709,44 @@ def gpu_line() -> str:
 T_START = time.time()
 
 
-def main() -> int:
+class Run:
+    """What the phases share: the datasets and configurations, made once
+    where a phase first asks for them, and each phase's result by name."""
+
+    def __init__(self, card: str):
+        self.card = card
+        self.results = {}
+        self._made = {}
+
+    def _once(self, key, make):
+        if key not in self._made:
+            self._made[key] = make()
+        return self._made[key]
+
+    def eval_data(self):
+        """The main path's dataset → {paths, yaml, cfg, dq}."""
+        def make():
+            paths = make_dataset()
+            yaml_path, cfg = write_config(paths)
+            dq = main_path_slices(cfg)
+            log(f"[data] query slices per episode: {dq}")
+            return {"paths": paths, "yaml": yaml_path, "cfg": cfg, "dq": dq}
+        return self._once("eval", make)
+
+    def train_data(self):
+        """The training dataset and YAML → (yaml path, cfg)."""
+        return self._once("train", make_train_config)
+
+    def lgca_data(self):
+        return self._once("lgca", make_lgca_config)
+
+
+def run_kernels(run):
+    """Phase 2: every kernel against its plain version (see the docstring)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this check runs on the GPU only",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
-    import rpnet_tpu_torch  # noqa: F401 — fails where the package is absent
-
-    card = gpu_line()
-    log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
-        f"torch {torch.__version__} CUDA {torch.version.cuda}")
-
-    phase_build()
-    paths = make_dataset()
-    yaml_path, cfg = write_config(paths)
-    dq = main_path_slices(cfg)
-    log(f"[data] query slices per episode: {dq}")
-
+    dq = run.eval_data()["dq"]
+    cfg = run.eval_data()["cfg"]
     bf16, f32 = torch.bfloat16, torch.float32
     main_case = check_local_corr((dq[0], 64, 64, 256), 5, bf16, seed=1, timed=True)
     # the breadth backbones' shapes (512 channels, two 256-channel groups):
@@ -2377,58 +2808,99 @@ def main() -> int:
         for j, dtype in enumerate((bf16, f32)):
             check_variant("csub", shape, r, dtype, seed=130 + 2 * i + j, timed=False)
     check_variant("pdot", (4, 64, 64, 48), 5, bf16, seed=26, timed=False)
+    return {"main_case": main_case, "wide": wide, "train_fwd": train_fwd,
+            "train_bwd": train_bwd, "wide_train": wide_train, "variant": variant,
+            "variant_train": variant_train}
 
-    # the kernel sweep: its own two kernels (rows 8 and 9), then the sweep
-    sweep_timed = phase_sweep_kernels()
-    sweep_launches = phase_sweep()
-    check_grid_sample()
-    check_affine_sharp()
 
-    _, launches, default_outputs, main_episodes = phase_main_path(yaml_path)
-    eval_launches = phase_eval_switches(yaml_path, dq, default_outputs)
-    data_launches = phase_data_paths(cfg)
-    breadth_launches = phase_breadth(cfg, paths)
-    phase_registration_reference(cfg)
-    deform_launches, deform_ops = phase_deformable_eval(cfg, main_episodes)
-    eval3d_launches = phase_eval_3d()
-    measure_bf16_rounding()
-    for backbone in ("UNet", "vgg", "resnet"):
-        phase_reference(backbone)
-    train_yaml, train_cfg = make_train_config()
-    train_res, train_launches, _ = phase_training(train_yaml, train_cfg)
-    switch_launches = phase_train_switches(train_cfg, train_res["step_losses"][0])
-    train_deform_launches = phase_deformable_training(train_cfg, train_res["step_losses"][0])
-    t0 = time.time()
-    breadth_train_launches = phase_train_breadth(train_cfg)
-    t_5d = time.time() - t0
-    profile_train_step(train_cfg)
-    t0 = time.time()
-    for backbone, compute_dtype in TRAIN_REFERENCE:
-        phase_train_reference(backbone, compute_dtype)
-    t_6 = time.time() - t0
-    t0 = time.time()
-    phase_trained_eval(train_cfg, cfg)
-    log(f"[phases] seconds: 5d training breadth {t_5d:.1f}, 6 training reference "
-        f"({len(TRAIN_REFERENCE)} steps) {t_6:.1f}, 3g trained checkpoint "
-        f"{time.time() - t0:.1f}; the script so far {time.time() - T_START:.1f}")
+def run_main(run):
+    _, launches, outputs, episodes = phase_main_path(run.eval_data()["yaml"])
+    return {"launches": launches, "outputs": outputs, "episodes": episodes}
 
-    # LGCANet_V3: no correlation kernel on its path (every count 0)
-    t0 = time.time()
-    phase_lgca_reference()
-    t_lref = time.time() - t0
-    lgca_yaml, lgca_cfg = make_lgca_config()
-    t0 = time.time()
-    lgca_res = phase_lgca_train(lgca_yaml, lgca_cfg)
-    t_ltrain = time.time() - t0
-    t0 = time.time()
-    phase_lgca_eval(lgca_cfg, lgca_res["checkpoint"])
-    t_leval = time.time() - t0
-    t0 = time.time()
-    profile_lgca(lgca_cfg, lgca_res["checkpoint"])
-    log(f"[phases] seconds: lgca-reference {t_lref:.1f}, lgca-train {t_ltrain:.1f}, "
-        f"lgca-eval {t_leval:.1f}, lgca profiles {time.time() - t0:.1f}; the script so "
-        f"far {time.time() - T_START:.1f}")
 
+def run_training(run):
+    res, launches, _ = phase_training(*run.train_data())
+    return {"res": res, "launches": launches}
+
+
+def run_train_breadth(run):
+    return phase_train_breadth(run.train_data()[1])
+
+
+def run_lgca_train(run):
+    return phase_lgca_train(*run.lgca_data())
+
+
+# the phases, in the order they run: name → (what it runs, the phases whose
+# results it reads). ``--phases`` runs the named ones and what they need;
+# the build comes first whatever is named.
+PHASES = {
+    "build": (lambda run: phase_build(), ()),
+    "native-io": (lambda run: phase_native_io(run.eval_data()["paths"]), ()),
+    "kernels": (run_kernels, ()),
+    "sweep-kernels": (lambda run: phase_sweep_kernels(), ()),
+    "sweep": (lambda run: phase_sweep(), ()),
+    "grid-sample": (lambda run: (check_grid_sample(), check_affine_sharp()), ()),
+    "main": (run_main, ()),
+    "eval-switches": (lambda run: phase_eval_switches(
+        run.eval_data()["yaml"], run.eval_data()["dq"], run.results["main"]["outputs"]),
+        ("main",)),
+    "data-paths": (lambda run: phase_data_paths(run.eval_data()["cfg"]), ()),
+    "breadth": (lambda run: phase_breadth(run.eval_data()["cfg"], run.eval_data()["paths"]),
+                ()),
+    "reg-reference": (lambda run: phase_registration_reference(run.eval_data()["cfg"]), ()),
+    "deform": (lambda run: phase_deformable_eval(run.eval_data()["cfg"],
+                                                 run.results["main"]["episodes"]), ("main",)),
+    "eval-3d": (lambda run: phase_eval_3d(), ()),
+    "serve-routes": (lambda run: phase_serve_routes(run.eval_data()["dq"]), ()),
+    "bf16-rounding": (lambda run: measure_bf16_rounding(), ()),
+    "reference": (lambda run: [phase_reference(b) for b in ("UNet", "vgg", "resnet")], ()),
+    "training": (run_training, ()),
+    "train-switches": (lambda run: phase_train_switches(
+        run.train_data()[1], run.results["training"]["res"]["step_losses"][0]), ("training",)),
+    "train-deform": (lambda run: phase_deformable_training(
+        run.train_data()[1], run.results["training"]["res"]["step_losses"][0]), ("training",)),
+    "train-breadth": (run_train_breadth, ()),
+    "train-profile": (lambda run: profile_train_step(run.train_data()[1]), ()),
+    "train-reference": (lambda run: [phase_train_reference(b, d) for b, d in TRAIN_REFERENCE],
+                        ()),
+    "trained": (lambda run: phase_trained_eval(run.train_data()[1], run.eval_data()["cfg"]), ()),
+    "serve": (lambda run: phase_serve(run.eval_data()["cfg"], run.results["main"]["episodes"],
+                                      run.results["trained"], run.card), ("main", "trained")),
+    "lgca-reference": (lambda run: phase_lgca_reference(), ()),
+    "lgca-train": (run_lgca_train, ()),
+    "lgca-eval": (lambda run: phase_lgca_eval(run.lgca_data()[1],
+                                              run.results["lgca-train"]["checkpoint"]),
+                  ("lgca-train",)),
+    "lgca-profile": (lambda run: profile_lgca(run.lgca_data()[1],
+                                              run.results["lgca-train"]["checkpoint"]),
+                     ("lgca-train",)),
+}
+
+
+def selected_phases(names):
+    """The phases to run for ``--phases`` ``names`` (None: all), with what
+    they need and the build, in ``PHASES`` order."""
+    if names is None:
+        return list(PHASES)
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phase(s) {unknown}; the phases are "
+                         f"{', '.join(PHASES)}")
+    want, todo = {"build"}, list(names)
+    while todo:
+        name = todo.pop()
+        if name not in want:
+            want.add(name)
+            todo.extend(PHASES[name][1])
+    return [n for n in PHASES if n in want]
+
+
+def kernel_entries(results):
+    """The kernel JSON's entries: one a row whose check phase ran, with the
+    launches of the path phases that ran. A path phase that did not run
+    gives no ``launches_by_run`` entry, and a row whose path did not run
+    has ``launches`` null."""
     def entry(name, source, replaces, res, n_launches, **extra):
         """``replaces``: a line of rpnet_tpu/ops/pallas/correlation.py, or
         "file:line" of another file; ``extra``: more keys of the entry."""
@@ -2444,56 +2916,121 @@ def main() -> int:
                 # corr_swapped: its kernel alone, before the wrapper's transpose
                 **({"kernel_ms": res["kernel_ms"]} if "kernel_ms" in res else {}), **extra}
 
-    def opt_in(wrapper):   # launches over the path runs that select it
-        return sum(run.get(wrapper, 0) for run in
-                   list(eval_launches.values()) + list(switch_launches.values()))
+    get = results.get
 
-    # row 1: the main path's count beside its timed shape; the data-path and
-    # breadth runs' counts per run, and the C = 512 shapes' times, beside it
-    row1_runs = {"main": launches, **{f"data-{k}": v for k, v in data_launches.items()},
-                 **{f"breadth-{k}": v for k, v in breadth_launches.items()},
-                 **{f"deform-{k}": v for k, v in deform_launches.items()},
-                 "eval3d": eval3d_launches, "lgca-eval": {}}
-    train_runs = {"train": train_launches, "train-deform": train_deform_launches,
-                  **{f"train-{k}": v for k, v in breadth_train_launches.items()},
-                  "lgca-train": {}}
-    kernels = [
-        entry("local_correlation", "local_corr.cu", 289, main_case,
-              launches["local_correlation"],
-              launches_by_run={k: v.get("local_correlation", 0) for k, v in row1_runs.items()},
-              wide_shapes=wide),
-        entry("local_correlation_train_forward", "local_corr.cu", 36, train_fwd,
-              train_launches["local_correlation"],
-              launches_by_run={k: v.get("local_correlation", 0) for k, v in train_runs.items()},
-              wide_shapes={k: v["forward"] for k, v in wide_train.items()}),
-        entry("local_correlation_bwd", "local_corr_bwd.cu", 776, train_bwd,
-              train_launches["local_correlation_bwd"],
-              launches_by_run={k: v.get("local_correlation_bwd", 0)
-                               for k, v in train_runs.items()},
-              wide_shapes={k: v["backward"] for k, v in wide_train.items()}),
-        entry("local_correlation_band", "local_corr_band.cu", 122, variant["band"],
-              opt_in("local_correlation_band")),
-        entry("local_correlation_pdot", "local_corr_band.cu", 289, variant["pdot"],
-              opt_in("local_correlation_pdot")),
-        entry("local_correlation_packed", "local_corr_band.cu", 446, variant["pack"],
-              opt_in("local_correlation_packed")),
-        entry("local_correlation_csub", "local_corr_csub.cu", 198, variant["csub"],
-              opt_in("local_correlation_csub")),
-        entry("corr_swapped", "local_corr_sweep.cu", "bench_tools/corr_sweep.py:37",
-              sweep_timed[("swapped", "bfloat16")], sweep_launches["corr_swapped"]),
-        entry("corr_rotmxu", "local_corr_sweep.cu", "bench_tools/corr_sweep.py:100",
-              sweep_timed[("rotmxu", "bfloat16")], sweep_launches["corr_rotmxu"]),
-    ]
-    for name, res in wide.items():
-        log(f"[kernels] {name} shape, local_correlation: {json.dumps(res)}")
-    log(f"[kernels] local_correlation launches: main path {launches}, data paths "
-        f"{data_launches}, breadth {breadth_launches}, deformable {deform_launches}, "
-        f"eval_3d {eval3d_launches}; training {train_runs}; device operations of one "
-        f"warm deformable (matmul) episode {deform_ops}")
-    for kind, res in variant_train.items():
-        log(f"[kernels] training shape, {kind}: {json.dumps(res)}")
-    for (kind, dtype), res in sweep_timed.items():
-        log(f"[kernels] sweep shape, {kind} {dtype}: {json.dumps(res)}")
+    def ran(phase, runs):   # ``runs`` ({run: launches}) where ``phase`` ran
+        return runs() if phase in results else {}
+
+    def count(runs, key, wrapper):   # a run's launches of ``wrapper``, None if not run
+        return runs[key].get(wrapper, 0) if key in runs else None
+
+    # row 1: the main path's count beside its timed shape; the data-path,
+    # breadth, deformable, eval_3d, served and LGCA eval runs' counts per run
+    row1_runs = {**ran("main", lambda: {"main": results["main"]["launches"]}),
+                 **{f"data-{k}": v for k, v in (get("data-paths") or {}).items()},
+                 **{f"breadth-{k}": v for k, v in (get("breadth") or {}).items()},
+                 **ran("deform", lambda: {f"deform-{k}": v
+                                          for k, v in results["deform"][0].items()}),
+                 **ran("eval-3d", lambda: {"eval3d": results["eval-3d"]}),
+                 **{k: v["launches"] for k, v in (get("serve") or {}).items()},
+                 **ran("lgca-eval", lambda: {"lgca-eval": {}})}   # it requires none
+    train_runs = {**ran("training", lambda: {"train": results["training"]["launches"]}),
+                  **ran("train-deform", lambda: {"train-deform": results["train-deform"]}),
+                  **{f"train-{k}": v for k, v in (get("train-breadth") or {}).items()},
+                  **ran("lgca-train", lambda: {"lgca-train": {}})}   # it requires none
+    opt_in_runs = list((get("eval-switches") or {}).values()) + \
+        list((get("train-switches") or {}).values())
+
+    def opt_in(wrapper):   # launches over the path runs that select it
+        if "eval-switches" not in results and "train-switches" not in results:
+            return None
+        return sum(run.get(wrapper, 0) for run in opt_in_runs)
+
+    entries = []
+    k = get("kernels")
+    if k:
+        entries += [
+            entry("local_correlation", "local_corr.cu", 289, k["main_case"],
+                  count(row1_runs, "main", "local_correlation"),
+                  launches_by_run={n: v.get("local_correlation", 0) for n, v in row1_runs.items()},
+                  wide_shapes=k["wide"]),
+            entry("local_correlation_train_forward", "local_corr.cu", 36, k["train_fwd"],
+                  count(train_runs, "train", "local_correlation"),
+                  launches_by_run={n: v.get("local_correlation", 0)
+                                   for n, v in train_runs.items()},
+                  wide_shapes={n: v["forward"] for n, v in k["wide_train"].items()}),
+            entry("local_correlation_bwd", "local_corr_bwd.cu", 776, k["train_bwd"],
+                  count(train_runs, "train", "local_correlation_bwd"),
+                  launches_by_run={n: v.get("local_correlation_bwd", 0)
+                                   for n, v in train_runs.items()},
+                  wide_shapes={n: v["backward"] for n, v in k["wide_train"].items()})]
+        routes = ran("serve-routes", lambda: {"serve-routes": results["serve-routes"]})
+        for name, kind, line in (("local_correlation_band", "band", 122),
+                                 ("local_correlation_pdot", "pdot", 289),
+                                 ("local_correlation_packed", "pack", 446),
+                                 ("local_correlation_csub", "csub", 198)):
+            source = "local_corr_csub.cu" if kind == "csub" else "local_corr_band.cu"
+            entries.append(entry(name, source, line, k["variant"][kind], opt_in(name),
+                                 launches_by_run={n: v[name].get(name, 0)
+                                                  for n, v in routes.items()}))
+    if get("sweep-kernels") and get("sweep"):
+        sweep_timed, sweep_launches = get("sweep-kernels"), get("sweep")
+        entries += [
+            entry("corr_swapped", "local_corr_sweep.cu", "bench_tools/corr_sweep.py:37",
+                  sweep_timed[("swapped", "bfloat16")], sweep_launches["corr_swapped"]),
+            entry("corr_rotmxu", "local_corr_sweep.cu", "bench_tools/corr_sweep.py:100",
+                  sweep_timed[("rotmxu", "bfloat16")], sweep_launches["corr_rotmxu"])]
+    return entries, row1_runs, train_runs
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Bring-up check of rpnet_tpu_torch on one GPU")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run alone (with what they need and "
+                         f"the build); default all: {', '.join(PHASES)}")
+    args = ap.parse_args(argv)
+    names = selected_phases(args.phases.split(",") if args.phases else None)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the GPU only",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import rpnet_tpu_torch  # noqa: F401 — fails where the package is absent
+
+    card = gpu_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
+        f"torch {torch.__version__} CUDA {torch.version.cuda}")
+    log(f"[phases] running {', '.join(names)}")
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+
+    run = Run(card)
+    seconds = {}
+    for name in names:
+        t0 = time.time()
+        run.results[name] = PHASES[name][0](run)
+        seconds[name] = round(time.time() - t0, 1)
+        log(f"[phases] {name} {seconds[name]}s; the script so far "
+            f"{time.time() - T_START:.1f}s")
+    log(f"[phases] seconds: {json.dumps(seconds)}")
+
+    kernels, row1_runs, train_runs = kernel_entries(run.results)
+    res = run.results
+    if "kernels" in res:
+        for name, r in res["kernels"]["wide"].items():
+            log(f"[kernels] {name} shape, local_correlation: {json.dumps(r)}")
+        for kind, r in res["kernels"]["variant_train"].items():
+            log(f"[kernels] training shape, {kind}: {json.dumps(r)}")
+    deform = res.get("deform")
+    log(f"[kernels] local_correlation launches by run {row1_runs}; training {train_runs}; "
+        f"device operations of one warm deformable (matmul) episode "
+        f"{deform[1] if deform else 'not run'}")
+    for (kind, dtype), r in (res.get("sweep-kernels") or {}).items():
+        log(f"[kernels] sweep shape, {kind} {dtype}: {json.dumps(r)}")
     log("kernels " + json.dumps([
         {"name": k["name"], "max_abs_err": k["max_abs_err"], "kernel_ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

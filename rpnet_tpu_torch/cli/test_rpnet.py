@@ -22,8 +22,8 @@ instead (``episode/volume3d.py``, sliding windows), one process only.
 ``net: LGCANet_V3`` runs :func:`eval_lgca` instead, the JAX CLI's
 whole-volume eval (``rpnet_tpu/cli/test_rpnet.py:326-382``): per-ROI Dice of
 every eval volume, one line a volume, the average block and
-``results_eval.json``, on one card (``mesh_shape`` raises; ROADMAP.md
-queue 1 item 8).
+``results_eval.json``, on one card (``mesh_shape`` raises: the mesh and
+multi-process branches are ROADMAP.md queue 1 item 8).
 
 It runs on the GPU (``--platform gpu``, the default) and raises when there
 is none; ``--platform cpu`` runs on the CPU with the kernels' plain versions.
@@ -84,7 +84,7 @@ def check_net(config: Config) -> None:
     if net == "LGCANet_V3" and config.get("mesh_shape"):
         raise NotImplementedError(
             "LGCANet_V3 with mesh_shape: rpnet_tpu_torch runs it on one card "
-            "(the mesh branches are ROADMAP.md queue 1 item 8)")
+            "(the mesh and multi-process branches are ROADMAP.md queue 1 item 8)")
 
 
 def load_checkpoint_into(model, config: Config) -> None:

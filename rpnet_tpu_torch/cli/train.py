@@ -32,7 +32,8 @@ demons blur keeps f32 (``registration/gaussian.no_tf32``).
 ``j % len(sampler)``, its ``lgca_slices`` slices drawn from
 ``np.random.RandomState(seed)``), the same ``epoch N loss X (Y
 volumes/s)`` line and ``.pth`` checkpoints with the upstream LGCA names, on
-one card (``mesh_shape`` raises; ROADMAP.md queue 1 item 8).
+one card (``mesh_shape`` raises: the mesh and multi-process branches are
+ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations

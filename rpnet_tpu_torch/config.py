@@ -96,6 +96,8 @@ _DEFAULTS: Dict[str, Any] = {
     "max_slices": 288,         # cap on query slices per episode
     "compute_dtype": None,     # None = bfloat16 network, f32 registration
                                # and metrics; float32 pins f32 throughout
+    "use_native_io": True,     # C++ NRRD decoder + raw cache (core/native_cache)
+    "io_cache_dir": None,      # where .rawcache files go (default: beside the NRRDs)
     "volume_cache": 8,         # sampler LRU over preprocessed volumes
                                # (entries; 0 disables): eval revisits the
                                # same volumes every run

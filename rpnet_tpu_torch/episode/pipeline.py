@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from rpnet_tpu_torch.core.metrics import dice, ncc
 from rpnet_tpu_torch.episode.sampler import Episode, EpisodeSpec
@@ -120,30 +121,53 @@ class Dispatched:
 
 
 class EpisodeRunner:
-    """Runs episodes through :func:`episode_metrics_fn` on one device."""
+    """Runs episodes through :func:`episode_metrics_fn` on one device.
 
-    def __init__(self, model, config, device):
+    ``fn`` takes the place of the model's episode function (``model`` is
+    then None): ``serve/export.py``'s reloaded program. With ``slices``
+    every episode is padded (images -1, labels 0, ``slice_mask`` 0) or
+    truncated to that many query slices, the static shape of an exported
+    program; the outputs are cut back to the episode's own slices."""
+
+    def __init__(self, model, config, device, *, fn=None, slices: Optional[int] = None):
         self.device = torch.device(device)
-        self.max_slices = int(config.get("max_slices", 288))
-        # f32 leaves cuDNN's convolutions at torch's default (TF32), as the
-        # JAX package leaves its f32 ones at XLA's default precision
-        compute_dtype = getattr(torch, config.get("compute_dtype") or "bfloat16")
-        self.model = model.to(device=self.device, dtype=compute_dtype).eval()
-        self.fn = episode_metrics_fn(
-            self.model, int(config.get("reg_affine_iters", 50)),
-            int(config.get("reg_fit_scale", 1)), compute_dtype,
-            float(config.get("reg_lr", 0.01)),
-            multishot=bool(config.get("multishot_fusion", False)),
-            use_registration=bool(config.get("use_registration_loss", True)),
-            n_way=int(config.get("n_way", 1)),
-            demons_iters=(int(config.get("reg_demons_iters", 50))
-                          if config.get("do_deformable", False) else 0),
-            reg_sigma=float(config.get("reg_sigma", 2.0)),
-            reg_sampler=str(config.get("reg_sampler", "matmul")))
+        self.slices = slices
+        self.max_slices = int(slices or config.get("max_slices", 288))
+        if fn is None:
+            # f32 leaves cuDNN's convolutions at torch's default (TF32), as the
+            # JAX package leaves its f32 ones at XLA's default precision
+            compute_dtype = getattr(torch, config.get("compute_dtype") or "bfloat16")
+            self.model = model.to(device=self.device, dtype=compute_dtype).eval()
+            fn = episode_metrics_fn(
+                self.model, int(config.get("reg_affine_iters", 50)),
+                int(config.get("reg_fit_scale", 1)), compute_dtype,
+                float(config.get("reg_lr", 0.01)),
+                multishot=bool(config.get("multishot_fusion", False)),
+                use_registration=bool(config.get("use_registration_loss", True)),
+                n_way=int(config.get("n_way", 1)),
+                demons_iters=(int(config.get("reg_demons_iters", 50))
+                              if config.get("do_deformable", False) else 0),
+                reg_sigma=float(config.get("reg_sigma", 2.0)),
+                reg_sampler=str(config.get("reg_sampler", "matmul")))
+        self.fn = fn
         self._dev_vols: "OrderedDict[Tuple[str, str], Tuple[torch.Tensor, torch.Tensor]]" \
             = OrderedDict()
         self._dev_vols_max = int(config.get("device_volume_cache", 16))
         self.supports_spec = self._dev_vols_max > 0
+
+    def _run(self, supp_img, supp_lab, qry_img, qry_lab):
+        """The episode function on the episode's slices, padded to ``slices``
+        where it is set."""
+        n = qry_img.shape[0]
+        if self.slices is None:
+            return self.fn(supp_img, supp_lab, qry_img, qry_lab,
+                           torch.ones(n, device=self.device))
+        pad = (0, 0, 0, 0, 0, self.slices - n)   # the slice axis
+        mask = (torch.arange(self.slices, device=self.device) < n).float()
+        packed, pred, prior = self.fn(
+            F.pad(supp_img, pad, value=-1.0), F.pad(supp_lab, pad),
+            F.pad(qry_img, pad, value=-1.0), F.pad(qry_lab, pad), mask)
+        return packed, pred[:n], prior[:n]
 
     def _upload(self, a: np.ndarray, keep: List[torch.Tensor]) -> torch.Tensor:
         """``a`` on the device. On the card through a pinned buffer (added to
@@ -206,8 +230,7 @@ class EpisodeRunner:
         """Run the episode function; with ``arrays`` also bring back its
         prediction and prior (exactly {0, 1}: uint8 holds them)."""
         with torch.no_grad():
-            packed, pred, prior = self.fn(supp_img, supp_lab, qry_img, qry_lab,
-                                          torch.ones(qry_img.shape[0], device=self.device))
+            packed, pred, prior = self._run(supp_img, supp_lab, qry_img, qry_lab)
         out = [packed] + ([pred.to(torch.uint8), prior.to(torch.uint8)] if arrays else [])
         if self.device.type != "cuda":
             return Dispatched(out[0], None, n_slices, keep, tuple(out[1:]) or None)

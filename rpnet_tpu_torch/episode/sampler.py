@@ -23,8 +23,12 @@ The port's copy of ``rpnet_tpu/episode/sampler.py``
     identical training episodes from one seed. The affine warp is numpy
     (:func:`warp_affine_nearest`), value for value OpenCV's.
 
-Volumes are read through the port's own NRRD codec. The native raw cache is
-not ported yet (ROADMAP.md).
+Volumes are read through the native raw cache (``core/native_cache.py``,
+a C++ decoder and a ``.rawcache`` beside each NRRD or under
+``io_cache_dir``) when ``use_native_io`` is on, the default, and through the
+port's Python NRRD codec otherwise; ``EpisodeSampler.io_reads`` counts the
+files each path read. Split files are ``.csv`` (one pid per line) or
+``.npy`` (an array of pids).
 
 Reference defects kept as the JAX package keeps them: the eval support loop
 overwrites across supports, so only the LAST sampled support volume is used
@@ -38,12 +42,12 @@ import dataclasses
 import os
 import random
 import threading
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from rpnet_tpu_torch.core import nrrd_io
+from rpnet_tpu_torch.core import native_cache, nrrd_io
 from rpnet_tpu_torch.core.transforms import (crop, gamma_transform,
                                              keep_only_annotation_z_slices,
                                              normalize, pad2factor,
@@ -118,11 +122,13 @@ class EpisodeSampler:
         self.mode = mode
         self.class_csv_dir = config["class_csv_dir"]
 
-        if not set_name.endswith(".csv"):
-            raise ValueError(f"unsupported split file {set_name} (one pid per "
-                             "line, .csv)")
-        names = np.genfromtxt(set_name, dtype=str, delimiter="\n")
-        self.filenames = [str(n) for n in np.atleast_1d(names)]
+        if set_name.endswith(".csv"):
+            names = np.genfromtxt(set_name, dtype=str, delimiter="\n")
+            self.filenames = [str(n) for n in np.atleast_1d(names)]
+        elif set_name.endswith(".npy"):
+            self.filenames = [str(n) for n in np.load(set_name)]
+        else:
+            raise ValueError(f"unsupported split file {set_name} (.csv or .npy)")
 
         self.classes = (config["train_classes"] if mode == "train"
                         else config["eval_classes"])
@@ -137,6 +143,9 @@ class EpisodeSampler:
         self._vol_cache: "OrderedDict[Tuple[str, str], Tuple[np.ndarray, np.ndarray]]" = OrderedDict()
         self._vol_cache_max = int(config.get("volume_cache", 8))
         self._vol_lock = threading.Lock()   # prefetch threads share the LRU
+        # files read by each path: "rawcache" and "native" (the C++ decoder),
+        # "nrrd_io" (the Python codec)
+        self.io_reads: Counter = Counter()
 
     def _read_data_meta(self):
         self.data_info: List[List[Dict]] = []
@@ -154,6 +163,20 @@ class EpisodeSampler:
     def __len__(self):
         return len(self.indices)
 
+    def _read_volume(self, path: str) -> np.ndarray:
+        """An NRRD volume, through the native raw cache when
+        ``use_native_io`` is on (``rpnet_tpu/episode/sampler.py:159-170``)."""
+        if self.cfg.get("use_native_io", True):
+            arr, meta = native_cache.read_cached(path, cache_dir=self.cfg.get("io_cache_dir"))
+            how = ("rawcache" if meta.get("cached") else "native") if meta["native"] \
+                else "nrrd_io"
+        else:
+            arr, _ = nrrd_io.read(path)
+            how = "nrrd_io"
+        with self._vol_lock:
+            self.io_reads[how] += 1
+        return arr
+
     def load_image_and_mask(self, pid: str, roi: str):
         """The per-volume preprocessing chain (few_shot_reader.py:324-345)."""
         key = (pid, roi)
@@ -164,12 +187,12 @@ class EpisodeSampler:
                 return hit
         cfg = self.cfg
         pad_factor = 16
-        mask, _ = nrrd_io.read(os.path.join(self.data_dir, f"{pid}_{roi}.nrrd"))
+        mask = self._read_volume(os.path.join(self.data_dir, f"{pid}_{roi}.nrrd"))
         mask = mask.astype(np.float32)
         mask = truncate_image(mask, cfg["num_slice"], cfg["num_x"], cfg["num_y"])
         mask = pad2factor(mask, factor=pad_factor, pad_value=0)[None]
 
-        imgs, _ = nrrd_io.read(os.path.join(self.data_dir, f"{pid}_clean.nrrd"))
+        imgs = self._read_volume(os.path.join(self.data_dir, f"{pid}_clean.nrrd"))
         imgs = truncate_image(imgs.astype(np.float32), cfg["num_slice"],
                               cfg["num_x"], cfg["num_y"])
         imgs = pad2factor(imgs, factor=pad_factor, pad_value=cfg["pad_value"])[None]

@@ -14,6 +14,17 @@ depend on it.
 plain version; a CUDA tensor goes to the Hopper kernel
 (``ops/csrc/local_corr.cu``, built by ``ops/kernels.py``) or raises.
 
+Custom ops. Each forward wrapper below calls a ``torch.library.custom_op``
+of the namespace ``rpnet_torch`` (``local_corr``, ``local_corr_band``,
+``local_corr_pdot``, ``local_corr_packed``, ``local_corr_csub``) whose CPU
+implementation is the plain version and whose CUDA implementation checks
+the inputs, launches the kernel and counts the launch on the wrapper
+(``<wrapper>.launches``); its fake implementation gives the output's shape
+and dtype. So ``torch.export`` records the correlation as one graph node,
+and an exported program launches the hand-written kernel on the card and
+counts it as the live path does (``serve/export.py``). The backward stays
+behind the autograd Function :class:`LocalCorrelation`.
+
 The backward, in the gathered form of ``_corr_bwd_kernel``
 (``rpnet_tpu/ops/pallas/correlation.py:776``), with δ = (dy−r, dx−r):
 
@@ -126,22 +137,57 @@ def _check_kernel_inputs(name: str, fm1: torch.Tensor, fm2: torch.Tensor,
                          "aligned tensors")
 
 
-def local_correlation(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
-    """Local correlation; the Hopper kernel for CUDA tensors (see module doc)."""
-    if fm1.device.type == "cpu" and fm2.device.type == "cpu":
-        return local_correlation_plain(fm1, fm2, r)
+OP_NAMESPACE = "rpnet_torch"
+_SCHEMA = "(Tensor fm1, Tensor fm2, int r) -> Tensor"
+
+
+def _corr_op(name: str, plain, kernel, out_shape, schema: str = _SCHEMA):
+    """Register ``rpnet_torch::<name>``: ``plain`` on CPU tensors, ``kernel``
+    (checks, launch, count) on CUDA tensors, and a fake implementation of
+    ``out_shape(input shape, r)`` in fm1's dtype for tracing. Another device
+    raises (no implementation), as does a CUDA input the kernel cannot
+    take."""
+    op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", plain, mutates_args=(),
+                                 device_types="cpu", schema=schema)
+    op.register_kernel("cuda")(kernel)
+    op.register_fake(lambda fm1, fm2, r, *rest: fm1.new_empty(out_shape(tuple(fm1.shape), r)))
+    return op
+
+
+def _check_device(name: str, *tensors: torch.Tensor) -> None:
+    """Raise for a device the op has no implementation of (a meta tensor
+    would take the fake one)."""
+    for t in tensors:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: a tensor on {t.device}; the plain version "
+                             "takes CPU tensors, the kernel CUDA tensors")
+
+
+def _nhwc_out(shape, r):
+    return shape[:3] + ((2 * r + 1) ** 2,)
+
+
+def _local_corr_cuda(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
     _check_kernel_inputs("local_correlation", fm1, fm2, r, max_batch=65535)
     from rpnet_tpu_torch.ops import kernels
 
     B, H, W, C = fm1.shape
-
-    d = 2 * r + 1
-    out = torch.empty((B, H, W, d * d), dtype=fm1.dtype, device=fm1.device)
+    out = torch.empty(_nhwc_out((B, H, W), r), dtype=fm1.dtype, device=fm1.device)
     if out.numel() == 0:
         return out
     kernels.launch_local_corr(fm1, fm2, out, r, correlation_scale(C))
     local_correlation.launches += 1
     return out
+
+
+_local_corr_op = _corr_op("local_corr", local_correlation_plain, _local_corr_cuda, _nhwc_out)
+
+
+def local_correlation(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
+    """Local correlation; the Hopper kernel for CUDA tensors (see module doc),
+    through the custom op ``rpnet_torch::local_corr``."""
+    _check_device("local_correlation", fm1, fm2)
+    return _local_corr_op(fm1, fm2, r)
 
 
 local_correlation.launches = 0   # kernel launches (the plain path never counts)
@@ -161,14 +207,21 @@ def _launch_band(wrapper, mode: str, fm1: torch.Tensor, fm2: torch.Tensor, r: in
     return out
 
 
+def _band_cuda(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
+    _check_kernel_inputs("local_correlation_band", fm1, fm2, r, max_batch=65535)
+    return _launch_band(local_correlation_band, "band", fm1, fm2, r, fm1.shape[2])
+
+
+_band_op = _corr_op("local_corr_band", local_correlation_plain, _band_cuda, _nhwc_out)
+
+
 def local_correlation_band(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
     """The ``pallas_mxu`` forward: the function of :func:`local_correlation_plain`
     as a tensor-core band product (``ops/csrc/local_corr_band.cu``) on CUDA
-    tensors; a CPU tensor goes to the plain version."""
-    if fm1.device.type == "cpu" and fm2.device.type == "cpu":
-        return local_correlation_plain(fm1, fm2, r)
-    _check_kernel_inputs("local_correlation_band", fm1, fm2, r, max_batch=65535)
-    return _launch_band(local_correlation_band, "band", fm1, fm2, r, fm1.shape[2])
+    tensors; a CPU tensor goes to the plain version. The custom op
+    ``rpnet_torch::local_corr_band``."""
+    _check_device("local_correlation_band", fm1, fm2)
+    return _band_op(fm1, fm2, r)
 
 
 local_correlation_band.launches = 0
@@ -193,15 +246,23 @@ def local_correlation_pdot_plain(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -
     return (s * scale).to(torch.bfloat16)
 
 
-def local_correlation_pdot(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
-    """The ``RPNET_ROT_EXTRACT=pdot`` forward: the band product with the
-    pdot epilogue (``ops/csrc/local_corr_band.cu``) on CUDA tensors; a CPU
-    tensor goes to :func:`local_correlation_pdot_plain`."""
-    if fm1.device.type == "cpu" and fm2.device.type == "cpu":
-        return local_correlation_pdot_plain(fm1, fm2, r)
+def _pdot_cuda(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
     _require_bf16("local_correlation_pdot", fm1)
     _check_kernel_inputs("local_correlation_pdot", fm1, fm2, r, max_batch=65535)
     return _launch_band(local_correlation_pdot, "pdot", fm1, fm2, r, fm1.shape[2])
+
+
+_pdot_op = _corr_op("local_corr_pdot", local_correlation_pdot_plain, _pdot_cuda, _nhwc_out)
+
+
+def local_correlation_pdot(fm1: torch.Tensor, fm2: torch.Tensor, r: int) -> torch.Tensor:
+    """The ``RPNET_ROT_EXTRACT=pdot`` forward: the band product with the
+    pdot epilogue (``ops/csrc/local_corr_band.cu``) on CUDA tensors; a CPU
+    tensor goes to :func:`local_correlation_pdot_plain`. The custom op
+    ``rpnet_torch::local_corr_pdot``."""
+    _require_bf16("local_correlation_pdot", fm1)
+    _check_device("local_correlation_pdot", fm1, fm2)
+    return _pdot_op(fm1, fm2, r)
 
 
 local_correlation_pdot.launches = 0
@@ -229,18 +290,27 @@ def local_correlation_packed_plain(fm1p: torch.Tensor, fm2p: torch.Tensor, r: in
     return (sums * correlation_scale(fm1p.shape[-1])).to(fm1p.dtype)
 
 
-def local_correlation_packed(fm1p: torch.Tensor, fm2p: torch.Tensor, r: int,
-                             width: int) -> torch.Tensor:
-    """Slice pairs packed side by side (B/2, H, 2W, C) → (B/2, H, 2W, d²):
-    the band kernel with the partner mask (``ops/csrc/local_corr_band.cu``)
-    on CUDA tensors; a CPU tensor goes to :func:`local_correlation_packed_plain`."""
-    if fm1p.device.type == "cpu" and fm2p.device.type == "cpu":
-        return local_correlation_packed_plain(fm1p, fm2p, r, width)
+def _packed_cuda(fm1p: torch.Tensor, fm2p: torch.Tensor, r: int,
+                 width: int) -> torch.Tensor:
     _check_kernel_inputs("local_correlation_packed", fm1p, fm2p, r, max_batch=65535)
     if fm1p.shape[2] != 2 * width:
         raise ValueError(f"local_correlation_packed: packed width {fm1p.shape[2]} "
                          f"is not two slices of {width}")
     return _launch_band(local_correlation_packed, "pack", fm1p, fm2p, r, width)
+
+
+_packed_op = _corr_op("local_corr_packed", local_correlation_packed_plain, _packed_cuda,
+                      _nhwc_out, schema="(Tensor fm1, Tensor fm2, int r, int width) -> Tensor")
+
+
+def local_correlation_packed(fm1p: torch.Tensor, fm2p: torch.Tensor, r: int,
+                             width: int) -> torch.Tensor:
+    """Slice pairs packed side by side (B/2, H, 2W, C) → (B/2, H, 2W, d²):
+    the band kernel with the partner mask (``ops/csrc/local_corr_band.cu``)
+    on CUDA tensors; a CPU tensor goes to :func:`local_correlation_packed_plain`.
+    The custom op ``rpnet_torch::local_corr_packed``."""
+    _check_device("local_correlation_packed", fm1p, fm2p)
+    return _packed_op(fm1p, fm2p, r, width)
 
 
 local_correlation_packed.launches = 0
@@ -260,13 +330,7 @@ def local_correlation_csub_plain(fm1t: torch.Tensor, fm2t: torch.Tensor, r: int)
     return local_correlation_plain(fm1t.transpose(2, 3), fm2t.transpose(2, 3), r)
 
 
-def local_correlation_csub(fm1t: torch.Tensor, fm2t: torch.Tensor, r: int) -> torch.Tensor:
-    """The ``csub`` kernel (``ops/csrc/local_corr_csub.cu``) on the layout of
-    ``_corr_csub_kernel``: fm1t, fm2t (B, H, C, W), W contiguous →
-    (B, H, W, d²). A CPU tensor goes to :func:`local_correlation_csub_plain`;
-    a CUDA tensor in any other layout raises."""
-    if fm1t.device.type == "cpu" and fm2t.device.type == "cpu":
-        return local_correlation_csub_plain(fm1t, fm2t, r)
+def _csub_cuda(fm1t: torch.Tensor, fm2t: torch.Tensor, r: int) -> torch.Tensor:
     _check_kernel_inputs("local_correlation_csub", fm1t, fm2t, r, max_batch=65535,
                          c_dim=2)
     B, H, C, W = fm1t.shape
@@ -278,6 +342,20 @@ def local_correlation_csub(fm1t: torch.Tensor, fm2t: torch.Tensor, r: int) -> to
     kernels.launch_local_corr_csub(fm1t, fm2t, out, r, correlation_scale(C))
     local_correlation_csub.launches += 1
     return out
+
+
+_csub_op = _corr_op("local_corr_csub", local_correlation_csub_plain, _csub_cuda,
+                    lambda shape, r: (shape[0], shape[1], shape[3], (2 * r + 1) ** 2))
+
+
+def local_correlation_csub(fm1t: torch.Tensor, fm2t: torch.Tensor, r: int) -> torch.Tensor:
+    """The ``csub`` kernel (``ops/csrc/local_corr_csub.cu``) on the layout of
+    ``_corr_csub_kernel``: fm1t, fm2t (B, H, C, W), W contiguous →
+    (B, H, W, d²). A CPU tensor goes to :func:`local_correlation_csub_plain`;
+    a CUDA tensor in any other layout raises. The custom op
+    ``rpnet_torch::local_corr_csub``."""
+    _check_device("local_correlation_csub", fm1t, fm2t)
+    return _csub_op(fm1t, fm2t, r)
 
 
 local_correlation_csub.launches = 0

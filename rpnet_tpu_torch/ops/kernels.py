@@ -6,7 +6,9 @@ a shared library with a plain C interface and loaded with ``ctypes``
 module is imported: :func:`build` runs at the first launch, or when a caller
 asks for it. The libraries go to ``build/kernels/`` at the repository root
 (listed in ``.gitignore``), named by a hash of their source, so an edited
-source is rebuilt and an unchanged one is reused.
+source is rebuilt and an unchanged one is reused. :func:`build_shared` holds
+that content-hashed build once; ``core/native_cache.py`` builds the host
+NRRD decoder (``native/nrrd_cache.cpp``, ``g++``) through it too.
 """
 
 from __future__ import annotations
@@ -40,6 +42,34 @@ def _nvcc() -> str:
     return path
 
 
+def build_shared(src: Path, out_dir: Path, command, verbose: bool = False) -> Path:
+    """Compile ``src`` into ``out_dir/lib<stem>_<hash>.so``, once per hash of
+    its source: ``command(out)`` is the compiler's command line writing the
+    library to ``out``. An existing library is reused unless ``verbose``,
+    which rebuilds it and prints what the compiler reports. A failed build
+    raises with the compiler's message."""
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = out_dir / f"lib{src.stem}_{digest}.so"
+    if lib.exists() and not verbose:
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = command(tmp)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:   # the compiler itself is missing
+        os.unlink(tmp)
+        raise RuntimeError(f"{cmd[0]} failed for {src}: {e}") from e
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{cmd[0]} failed for {src}:\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, end="")
+    os.replace(tmp, lib)   # atomic: a concurrent build never sees half a file
+    return lib
+
+
 def build(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` (once per source hash) → the library path.
 
@@ -47,23 +77,9 @@ def build(name: str, verbose: bool = False) -> Path:
     (registers, shared memory, spills per kernel).
     """
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
-    if lib.exists() and not verbose:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, lib)   # atomic: a concurrent build never sees half a file
-    return lib
+    return build_shared(src, BUILD_DIR, lambda out: [
+        _nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", out, str(src)],
+        verbose)
 
 
 def load(name: str) -> ctypes.CDLL:

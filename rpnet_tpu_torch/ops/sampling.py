@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rpnet_tpu_torch.utils.tensor_cache import device_tensor_cache
+
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
@@ -80,12 +82,10 @@ def _resize_weights(src: int, dst: int, align_corners: bool) -> np.ndarray:
     return out.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@device_tensor_cache
 def _resize_matrix(src: int, dst: int, align_corners: bool, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
-    """:func:`_resize_weights` as a tensor on ``device``, made once: a fresh
-    copy from host memory on each call would block the host until the
-    device is idle."""
+    """:func:`_resize_weights` as a tensor on ``device``, made once."""
     return torch.from_numpy(_resize_weights(src, dst, align_corners)).to(device, dtype)
 
 

@@ -11,12 +11,13 @@ its own call whatever the network's setting.
 from __future__ import annotations
 
 import contextlib
-import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from rpnet_tpu_torch.utils.tensor_cache import device_tensor_cache
 
 
 def gaussian_kernel_1d(sigma: float) -> np.ndarray:
@@ -33,12 +34,10 @@ def gaussian_kernel_2d(sigma: Sequence[float]) -> np.ndarray:
     return k / np.sum(k)
 
 
-@functools.lru_cache(maxsize=None)
+@device_tensor_cache
 def _blur_weight(sigma: Tuple[float, float], channels: int, device: torch.device,
                  dtype: torch.dtype) -> torch.Tensor:
-    """The depthwise (channels, 1, kh, kw) kernel on ``device``, made once: a
-    copy from host memory on each call would block the host until the
-    device is idle."""
+    """The depthwise (channels, 1, kh, kw) kernel on ``device``, made once."""
     k2 = torch.from_numpy(gaussian_kernel_2d(sigma).astype(np.float32))
     return k2[None, None].repeat(channels, 1, 1, 1).to(device, dtype)
 

@@ -9,7 +9,8 @@ runs on the host data path (``device_volume_cache: 0``, ``num_workers:
 0``) and on the defaults (a device volume cache of 16 and index-only
 episodes; 4 prefetch workers, unused while the cache is on), each held
 against one run of the JAX CLI (its episodes and Dice do not depend on the
-data path), and the two paths print the same lines.
+data path), and the two paths print the same lines. The port's served eval (its
+export and serve CLIs) is held against the same JAX run.
 """
 
 import json
@@ -23,6 +24,8 @@ import yaml
 
 from rpnet_tpu.cli import test_rpnet as jax_cli
 from rpnet_tpu.core.synthetic import generate_dataset
+from rpnet_tpu_torch.cli import export as export_cli
+from rpnet_tpu_torch.cli import serve as serve_cli
 from rpnet_tpu_torch.cli import test_rpnet as torch_cli
 from rpnet_tpu_torch.train.convert import state_dict_from_jax
 
@@ -98,12 +101,32 @@ def cli_runs(tmp_path_factory):
         return run(f"torch_{data_path}", torch_cli, ["--platform", "cpu"],
                    **DATA_PATHS[data_path])
 
-    return run("jax", jax_cli, [], reg_sampler="gather"), port
+    def served():
+        """The port's cli.export, then cli.serve on the artifact, the same
+        YAML and ``.pth`` (the default data path)."""
+        if "served" not in runs:
+            out, ypath, art = str(tmp / "served"), str(tmp / "served.yml"), str(tmp / "art")
+            with open(ypath, "w") as f:
+                yaml.safe_dump(_config(paths, out, ckpt), f)
+            # 16 slices hold every episode of this dataset (9-12)
+            export_cli.main(["--yaml", ypath, "--out", art, "--slices", "16",
+                             "--platform", "cpu"])
+            stdout = sys.stdout
+            try:
+                res = serve_cli.main(["--artifact", art, "--yaml", ypath, "--platform", "cpu"])
+            finally:
+                sys.stdout = stdout
+            assert sys.stdout is stdout
+            with open(f"{out}/results_eval.json") as f:
+                runs["served"] = (res, json.load(f), _episode_lines(f"{out}/log_serve"))
+        return runs["served"]
+
+    return run("jax", jax_cli, [], reg_sampler="gather"), port, served
 
 
 @pytest.mark.parametrize("data_path", list(DATA_PATHS))
 def test_cli_parity(cli_runs, data_path):
-    (_, j, jl), port = cli_runs
+    (_, j, jl), port, _ = cli_runs
     _, t, tl = port(data_path)
     assert set(t) >= {"classes", "wall_time_sec", "episodes", "failed_episodes",
                       "episodes_per_sec"}
@@ -121,6 +144,26 @@ def test_cli_parity(cli_runs, data_path):
     assert tl == jl
     if data_path == "defaults":   # the port's two data paths print the same lines
         assert tl == port("num_workers=0")[2]
+
+
+def test_serve_cli_matches_jax(cli_runs):
+    """The port's served eval (``cli.export`` then ``cli.serve``, f32, the
+    default data path, volumes read through the native raw cache) against
+    the JAX package's live eval CLI: every per-class affine, fewshot and
+    per-iteration Dice within 1e-3, and the port's live CLI's per-episode
+    lines."""
+    (_, j, jl), port, served = cli_runs
+    _, s, sl = served()
+    assert s["episodes"] == j["episodes"] == 3
+    assert s["failed_episodes"] == j["failed_episodes"] == 0
+    jc, sc = j["classes"]["Liver"], s["classes"]["Liver"]
+    assert set(sc["refinement"]) == set(jc["refinement"]) == {"0", "1"}
+    for key in ("affine", "fewshot"):
+        np.testing.assert_allclose(sc[key], jc[key], atol=1e-3, err_msg=key)
+    for it in jc["refinement"]:
+        np.testing.assert_allclose(sc["refinement"][it], jc["refinement"][it],
+                                   atol=1e-3, err_msg=f"ref {it}")
+    assert sl == port("defaults")[2] == jl
 
 
 def test_deformable_eval_matches_jax(tmp_path, capsys, monkeypatch):

@@ -11,12 +11,14 @@ import pytest
 
 from rpnet_tpu import config as jax_config
 from rpnet_tpu.core import nrrd_io as jax_nrrd
+from rpnet_tpu.core import synthetic as jax_synthetic
 from rpnet_tpu.core.synthetic import generate_dataset as jax_generate_dataset
 from rpnet_tpu.episode.sampler import EpisodeSampler as JaxEpisodeSampler
 from rpnet_tpu.episode.sampler import random_affine_2d as jax_random_affine_2d
 from rpnet_tpu.episode.sampler import slice_bins as jax_slice_bins
 from rpnet_tpu_torch import config
 from rpnet_tpu_torch.core import nrrd_io
+from rpnet_tpu_torch.core import synthetic
 from rpnet_tpu_torch.core.synthetic import generate_dataset
 from rpnet_tpu_torch.core.transforms import gamma_transform
 from rpnet_tpu_torch.episode.sampler import (EpisodeSampler, random_affine_2d,
@@ -73,6 +75,10 @@ def test_config_reads_the_example_yaml_as_jax_does():
         for key in config._DEFAULTS:
             assert cfg[key] == jcfg[key], key
     assert config.Config({"n_shot": 3})["test_shot"] == 3
+    # the native IO keys: on in the example, the cache beside the NRRDs
+    assert {"use_native_io", "io_cache_dir"} <= set(config._DEFAULTS)
+    assert config.Config(raw)["use_native_io"] is True and raw["use_native_io"] is True
+    assert config.Config({})["io_cache_dir"] is None
 
 
 @pytest.mark.parametrize("sizes,nq,k", [([30], 17, 12), ([5], 40, 12), ([9, 13], 11, 4)])
@@ -239,3 +245,64 @@ def test_lgca_sampler_matches_jax(datasets, mode):
             assert not a["mask"][..., 2].any()            # no Kidney L in this set
             assert a["slices"].shape[0] == (5 if mode == "train" else 32)
     assert not ours._vol_cache[ours.filenames[0]][0].flags.writeable
+
+
+def test_multiclass_proxy_matches_jax(tmp_path):
+    """The 11-class Abd-110 proxy: the same volume and masks for a seed, and
+    the same files for a dataset of every class."""
+    assert synthetic.ABD110_CLASSES == jax_synthetic.ABD110_CLASSES
+    assert synthetic.PROXY_TRAIN_CLASSES == jax_synthetic.PROXY_TRAIN_CLASSES
+    assert synthetic.PROXY_EVAL_CLASSES == jax_synthetic.PROXY_EVAL_CLASSES
+    vol, masks = synthetic.make_patient_multiclass((14, 40, 44), 7)
+    jvol, jmasks = jax_synthetic.make_patient_multiclass((14, 40, 44), 7)
+    assert vol.dtype == jvol.dtype and list(masks) == list(jmasks)
+    np.testing.assert_array_equal(vol, jvol)
+    for roi in masks:
+        np.testing.assert_array_equal(masks[roi], jmasks[roi], err_msg=roi)
+    kw = dict(n_train=1, n_test=1, shape=(12, 36, 36),
+              classes=synthetic.ABD110_CLASSES, seed=1)
+    jp = jax_generate_dataset(str(tmp_path / "jax"), **kw)
+    tp = generate_dataset(str(tmp_path / "torch"), **kw)
+    names = sorted(os.listdir(jp["data_dir"]))
+    assert names == sorted(os.listdir(tp["data_dir"])) and len(names) == 2 * 12
+    for name in names:
+        np.testing.assert_array_equal(nrrd_io.read(os.path.join(tp["data_dir"], name))[0],
+                                      jax_nrrd.read(os.path.join(jp["data_dir"], name))[0],
+                                      err_msg=name)
+    for roi in synthetic.ABD110_CLASSES:
+        with open(os.path.join(jp["class_dir"], f"{roi}.csv")) as f, \
+                open(os.path.join(tp["class_dir"], f"{roi}.csv")) as g:
+            assert f.read().replace(jp["data_dir"], "") == g.read().replace(tp["data_dir"], "")
+
+
+@pytest.mark.parametrize("mode", ["eval", "train"])
+def test_npy_split_sampler_matches_jax(datasets, tmp_path, mode):
+    """A ``.npy`` split: both samplers, each reading through its package's
+    native raw cache (``use_native_io``, the default), draw the same
+    episodes from one seed."""
+    _, tp = datasets
+    split = str(tmp_path / "split.npy")
+    with open(tp["test_csv"]) as f:
+        np.save(split, np.array([l.strip() for l in f if l.strip()]))
+    classes = ["Liver", "Spleen"]
+    raw = dict(class_csv_dir=tp["class_dir"], eval_classes=classes, train_classes=classes,
+               num_slice=32, num_x=48, num_y=48, crop_size=[32, 32], k=4)
+    ours = EpisodeSampler(tp["data_dir"], split,
+                          config.Config(dict(raw, io_cache_dir=str(tmp_path / "t"))), mode=mode)
+    ref = JaxEpisodeSampler(tp["data_dir"], split,
+                            jax_config.Config(dict(raw, io_cache_dir=str(tmp_path / "j"))),
+                            mode=mode)
+    assert len(ours) == len(ref) == 8
+    episodes = {}
+    for name, sampler in (("ours", ours), ("ref", ref)):
+        random.seed(4)
+        np.random.seed(4)
+        episodes[name] = [sampler.sample(j) for j in range(len(sampler))]
+    for j, (a, b) in enumerate(zip(episodes["ours"], episodes["ref"])):
+        assert (a.class_id, a.pid, a.supp_pids) == (b.class_id, b.pid, b.supp_pids)
+        for name in ("support_images", "support_labels", "query_images", "query_labels"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                          err_msg=f"{j} {name}")
+    assert set(ours.io_reads) == {"rawcache"} and ours.io_reads["rawcache"] == 2 * 8
+    with pytest.raises(ValueError, match=".npy"):
+        EpisodeSampler(tp["data_dir"], str(tmp_path / "split.txt"), config.Config(raw))
