@@ -5,7 +5,8 @@
 
 With no argument every phase runs, in the order below; ``--phases`` runs
 the named ones alone, with the phases whose results they read (``main``
-for ``eval-switches``, ``deform`` and ``serve``; ``trained`` for ``serve``;
+for ``eval-switches``, ``deform``, ``serve``, ``multiprocess`` and ``mesh``;
+``trained`` for ``serve``;
 ``training`` for ``train-switches`` and ``train-deform``; ``lgca-train``
 for ``lgca-eval`` and ``lgca-profile``) and the build; the kernel JSON then lists the rows
 whose checks ran, with the launches of the path phases that ran (null,
@@ -209,7 +210,33 @@ Phases, each of which raises on failure (exit code 1, no result line):
      volume; volumes/s, peak memory and per-ROI Dice logged; then one warm
      train step and one warm eval volume under ``torch.profiler`` (device
      time by operator group: 3D and 2D convolutions, attention, norms,
-     other).
+     other);
+  multiprocess [multiprocess] — the eval CLI on phase 3's configuration
+     and volumes, each volume listed ``MP_REPEAT`` times (32 episodes a
+     pass), ``MP_RUNS`` passes a run, as one process and as two processes
+     sharing the card (``multihost: true``, a gloo group on a free
+     localhost port, ``mesh_shape: {data: 2}`` resolved to ``{data: 1}``
+     each), four runs alternated one/two/two/one, each from a ``python
+     -c`` wrapper that calls the CLI's ``main`` and prints row 1's
+     launches: every worker exits 0 within ``MP_TIMEOUT_S``, both print
+     the single run's aggregate block, the union of their episode lines is
+     the single run's (bit for bit, or within 1e-4, logged which), pass 1's
+     episodes on phase 3's (query, support) pairs have phase 3's Dice, row
+     1's launches summed over the workers equal the single run's; the
+     median warm episodes/s of one and of two processes, every pass's,
+     and each worker's ``stage_timing`` logged;
+  mesh [mesh] — the eval CLI with ``mesh_shape: {data: 1, model: 1}``
+     gives phase 3's episode metrics; ``{data: 2}`` in one process raises
+     the JAX resolver's message; LGCANet_V3 eval with ``{data: 1}`` runs
+     its volume;
+  preprocess [preprocess] — on a synthetic 280×272×272 CT volume: the
+     host body mask (timed), the torch morphology twins (radius 7) and Otsu
+     on the card against the CPU (equal; Otsu equal or one bin apart) and
+     timed, ``affine_register_volumes`` card vs CPU on 5 smoothed slices
+     (theta within 1e-3), ``preprocess_patient`` on a 48×272×272 patient;
+  debug-nans [debug-nans] — the eval CLI with ``debug_nans: true`` on 2
+     episodes runs clean; with a NaN in episode 0's query volume that
+     episode raises at its first NaN and is counted as the one failure.
 
 Each phase's seconds are logged as it ends (``[phases]``). Then it prints the kernel table (a ``kernels`` line and a ``{"kernels":
 ...}`` JSON line), the card's name and power limit from nvidia-smi, and as
@@ -1396,15 +1423,10 @@ def log_device_profile(tag: str, what: str, prof, wall_ms: float):
     the device operations run, the busy share of ``wall_ms`` and the top ten
     kernels of a ``torch.profiler`` run (a measurement; nothing is
     checked)."""
-    import torch
+    from rpnet_tpu_torch.utils.profiling import device_events, device_ms as dev_ms
 
-    def dev_ms(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-    # device-side events only (kernels, copies): an operator's own entry may
-    # also carry its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_ms(e) > 0]
+    # device-side events only (kernels, copies), the library's filter
+    events = device_events(prof)
     groups = {"correlation kernels": 0.0, "convolutions (cuDNN)": 0.0, "other": 0.0}
     for e in events:
         n = e.key.lower()
@@ -2373,7 +2395,7 @@ def log_lgca_profile(tag: str, what: str, prof, wall_ms: float):
     ``kernels``: an operator's inclusive device time counts some kernels
     twice under ``no_grad``); then ``log_device_profile``'s line and top ten
     kernels."""
-    import torch
+    from rpnet_tpu_torch.utils.profiling import device_events, device_ms
 
     group_of = {op: g for g, ops in LGCA_PROFILE_GROUPS.items() for op in ops}
     groups = {"3D convolutions": 0.0, "2D convolutions": 0.0, "norms": 0.0,
@@ -2392,8 +2414,7 @@ def log_lgca_profile(tag: str, what: str, prof, wall_ms: float):
             rank = len(next((sh for sh in op.input_shapes or [] if sh), []))
             group = "3D convolutions" if rank == 5 else "2D convolutions"
         groups[group] += us / 1e3
-    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    total = sum(device_ms(e) for e in device_events(prof))
     log(f"[{tag}] {what}: device time {sum(groups.values()):.2f} ms by the operator "
         f"that launched it (the kernels' own total {total:.2f} ms) "
         + json.dumps({k: round(v, 3) for k, v in groups.items()}))
@@ -2697,6 +2718,445 @@ def phase_serve_routes(dq):
     return out
 
 
+# --------------------------------------------------------------------------
+# multi-process eval, the mesh resolver, preprocessing and debug_nans
+# --------------------------------------------------------------------------
+
+MP_REPEAT = 8              # the phase's class CSV lists each eval volume this many times
+MP_RUNS = 4                # passes of each run (the first cold)
+MP_ORDER = ("one", "two", "two", "one")   # the runs, alternated
+MP_TIMEOUT_S = 300         # each worker's time limit
+# a worker: the eval CLI's main, then row 1's launches in this process
+MP_WORKER = ("import sys\n"
+             "sys.path.insert(0, sys.argv[1])\n"
+             "import torch\n"
+             "from rpnet_tpu_torch.cli import test_rpnet\n"
+             "from rpnet_tpu_torch.ops import correlation as tc\n"
+             "test_rpnet.main(['--yaml', sys.argv[2]])\n"
+             "torch.cuda.synchronize()\n"
+             "print('ROW1_LAUNCHES', tc.local_correlation.launches, flush=True)\n")
+EPISODE_LINE = r"^(\d+) (\S+) (\S+) affine \((\S+), (\S+)\) (\S+), fewshot (\S+) (.*)$"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(yamls, label):
+    """One eval CLI process per YAML on the card, started together; each
+    must exit 0 within ``MP_TIMEOUT_S`` → their stdouts. Every worker is
+    killed if one fails or hangs."""
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")   # the group is on localhost
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "RPNET_MULTIHOST_OPTIONAL"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, "-c", MP_WORKER, ROOT, y], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for y in yamls]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[{label}] worker {i} exited {p.returncode}:\n{out[-6000:]}")
+    return outs
+
+
+def parse_worker(out):
+    """A worker's ({(pass, j): episode line}, [pass walls], [stage_timing
+    lines], row 1's launches, the aggregate block)."""
+    import re
+
+    lines, passes, walls, timings, launches, agg = out.splitlines(), {}, [], [], None, []
+    current = 0
+    for i, ln in enumerate(lines):
+        m = re.match(r"^(\d+) / (\d+)$", ln)
+        if m:
+            current = int(m.group(1))
+        elif re.match(EPISODE_LINE, ln):
+            passes[(current, int(ln.split()[0]))] = ln.rstrip()
+        elif ln.startswith("pass_wall "):
+            walls.append(float(ln.split()[1].rstrip("s")))
+        elif ln.startswith("stage_timing "):
+            timings.append(ln)
+        elif ln.startswith("ROW1_LAUNCHES "):
+            launches = int(ln.split()[1])
+        elif ln.startswith("=======Average performance"):
+            agg = [l.rstrip() for l in lines[i:i + 3]]
+    return passes, walls, timings, launches, agg
+
+
+def episode_numbers(line):
+    """The Dice values of an episode line (affine, fewshot, each iteration)."""
+    import re
+
+    m = re.match(EPISODE_LINE, line)
+    vals = [m.group(6), m.group(7)] + re.findall(r"ref \d+ (\S+),", m.group(8))
+    return [None if v == "None" else float(v) for v in vals]
+
+
+def main_log_episodes():
+    """Phase main's per-episode lines (its CLI's log, its first pass)."""
+    import re
+
+    with open(os.path.join(WORK, "out", "log_eval")) as f:
+        lines = f.read().splitlines()
+    start = lines.index("1 / 1")
+    out = {}
+    for ln in lines[start + 1:]:
+        if ln.startswith("1 / 1"):
+            break
+        if re.match(EPISODE_LINE, ln):
+            out[int(ln.split()[0])] = ln.rstrip()
+    return out
+
+
+def repeated_class_csv(cfg, repeat):
+    """A class-CSV directory whose eval-class lists hold each row of
+    ``cfg``'s ``repeat`` times, in blocks: ``repeat`` × the episodes a pass
+    on the same volumes (each episode draws its support from the other
+    rows, so a support may be the query's own volume)."""
+    import csv
+
+    out = os.path.join(WORK, f"class_x{repeat}")
+    os.makedirs(out, exist_ok=True)
+    for roi in cfg["eval_classes"]:
+        with open(os.path.join(cfg["class_csv_dir"], f"{roi}.csv")) as f:
+            rows = list(csv.DictReader(f))
+        with open(os.path.join(out, f"{roi}.csv"), "w", newline="") as f:
+            w = csv.DictWriter(f, list(rows[0]))
+            w.writeheader()
+            for _ in range(repeat):
+                w.writerows(rows)
+    return out
+
+
+def phase_multiprocess(cfg):
+    """Phase multiprocess: the eval CLI as two processes sharing the card
+    (``multihost: true``, a gloo group on a free localhost port,
+    ``mesh_shape: {data: 2}`` resolved per process to ``{data: 1}``)
+    against one process, on phase main's configuration and volumes with
+    each volume listed ``MP_REPEAT`` times (32 episodes a pass, 16 a
+    worker), ``MP_RUNS`` passes a run, the runs in the order ``MP_ORDER``,
+    each launched the same way (a ``python -c`` wrapper that calls the
+    CLI's ``main`` and prints row 1's launches). Every worker exits 0; in
+    each pair both print the same aggregate block, the one-process runs'
+    too; the union of a pair's episode lines is the one-process run's; every
+    episode of the first one-process run's pass 1 whose (query, support)
+    pair phase main ran has phase main's Dice, and each of phase main's
+    pairs occurs; row 1's launches summed over a pair's workers equal the
+    one-process run's. The median warm (passes 2 on) episodes/s of one and
+    of two processes, every pass's, and each worker's ``stage_timing`` of
+    the first pair logged."""
+    import collections
+    import statistics
+
+    import torch
+    import yaml
+
+    torch.cuda.empty_cache()   # the parent's cached blocks stay free for the workers
+    cfg = dict(cfg, class_csv_dir=repeated_class_csv(cfg, MP_REPEAT), n_runs=MP_RUNS)
+    runs, seconds = [], []
+    for i, kind in enumerate(MP_ORDER):
+        if kind == "one":
+            names = {"single": {}}
+        else:
+            group = {"multihost": True, "coordinator_address": f"127.0.0.1:{free_port()}",
+                     "num_processes": 2, "mesh_shape": {"data": 2}}
+            names = {"p0": dict(group, process_id=0), "p1": dict(group, process_id=1)}
+        paths = []
+        for name, extra in names.items():
+            path = os.path.join(WORK, f"mp_{i}_{name}.yml")
+            with open(path, "w") as f:
+                yaml.safe_dump(dict(cfg, out_dir=os.path.join(WORK, f"out_mp_{i}_{name}"),
+                                    **extra), f)
+            paths.append(path)
+        t0 = time.time()
+        runs.append((kind, [parse_worker(o) for o in run_workers(paths, f"multiprocess-{i}")]))
+        seconds.append(time.time() - t0)
+
+    singles = [w[0] for kind, w in runs if kind == "one"]
+    pairs = [w for kind, w in runs if kind == "two"]
+    s_eps, _, _, s_launch, s_agg = singles[0]
+    n_eps = len(s_eps) // MP_RUNS
+    expect = 11 * n_eps * MP_RUNS
+    exact = True
+    # every later run against the first one-process run: a second one-process
+    # run, then each pair (its workers' lines and launches together)
+    for workers in [[w] for w in singles[1:]] + pairs:
+        if not (workers[0][4] and all(w[4] == s_agg for w in workers)):
+            raise AssertionError(f"[multiprocess] aggregate blocks differ: "
+                                 f"{[w[4] for w in workers]} / {s_agg}")
+        union = {k: v for w in workers for k, v in w[0].items()}
+        if set(union) != set(s_eps) or sum(len(w[0]) for w in workers) != len(s_eps):
+            raise AssertionError(f"[multiprocess] episodes {[sorted(w[0]) for w in workers]} "
+                                 f"against the single run's {sorted(s_eps)}")
+        if not all(union[k] == s_eps[k] for k in s_eps):   # the same numbers, not bit for bit
+            exact = False
+            worst = max(abs(a - b) for k in s_eps
+                        for a, b in zip(episode_numbers(union[k]), episode_numbers(s_eps[k]))
+                        if a is not None and b is not None)
+            keys_same = all(union[k].split()[:3] == s_eps[k].split()[:3] for k in s_eps)
+            if worst > 1e-4 or not keys_same:
+                raise AssertionError(f"[multiprocess] episode lines differ from the single "
+                                     f"run's by {worst}")
+        if not (s_launch == sum(w[3] for w in workers) == expect):
+            raise AssertionError(f"[multiprocess] row 1 launches: single {s_launch}, workers "
+                                 f"{[w[3] for w in workers]}; expected {expect}")
+    # phase main's episodes, by (query, support): the same volumes give the same Dice
+    main_eps = {tuple(ln.split()[1:3]): episode_numbers(ln)
+                for ln in main_log_episodes().values()}
+    matched, main_worst = collections.Counter(), 0.0
+    for (pas, j), line in s_eps.items():
+        key = tuple(line.split()[1:3])
+        if pas != 1 or key not in main_eps:
+            continue
+        ours = episode_numbers(line)
+        if len(ours) != len(main_eps[key]):
+            raise AssertionError(f"[multiprocess] episode {j}: {line} against phase main's "
+                                 f"{key} {main_eps[key]}")
+        matched[key] += 1
+        main_worst = max([main_worst] + [abs(a - b) for a, b in zip(ours, main_eps[key])
+                                         if a is not None and b is not None])
+    if set(matched) != set(main_eps) or main_worst > 1e-4:
+        raise AssertionError(f"[multiprocess] phase main's episodes in pass 1: {dict(matched)} "
+                             f"of {sorted(main_eps)}, Dice within {main_worst}")
+    # a pass ends with the records' merge (a collective), so the slower
+    # worker's pass wall is the pair's
+    one = [[n_eps / w for w in single[1]] for single in singles]
+    two = [[n_eps / max(a, b) for a, b in zip(p0[1], p1[1])] for p0, p1 in pairs]
+    warm_one = [v for r in one for v in r[1:]]
+    warm_two = [v for r in two for v in r[1:]]
+    med_one, med_two = statistics.median(warm_one), statistics.median(warm_two)
+    p0, p1 = pairs[0]
+    log(f"[multiprocess] {n_eps} episodes a pass ({n_eps // MP_REPEAT} volumes listed "
+        f"{MP_REPEAT}x) x {MP_RUNS} passes a run, runs {'/'.join(MP_ORDER)}; worker shards of "
+        f"{len({j for _, j in p0[0]})} and {len({j for _, j in p1[0]})} episodes; episode lines "
+        f"{'bit-equal to' if exact else 'within 1e-4 of'} the first single run's in every run; "
+        f"{sum(matched.values())} pass-1 episodes of phase main's {len(main_eps)} (query, "
+        f"support) pairs {'equal to' if main_worst == 0 else f'within {main_worst:.3g} of'} "
+        f"phase main's; row 1 launches {p0[3]} + {p1[3]} = {p0[3] + p1[3]} a pair "
+        f"(single {s_launch})")
+    log(f"[multiprocess] episodes/s by pass, one process "
+        f"{[[round(v, 3) for v in r] for r in one]}, two processes "
+        f"{[[round(v, 3) for v in r] for r in two]}; warm (passes 2-{MP_RUNS}) median of "
+        f"{len(warm_one)}: one {med_one:.3f}, two {med_two:.3f} (x{med_two / med_one:.2f}); "
+        f"run seconds {[round(t, 1) for t in seconds]}")
+    for name, worker in (("single", singles[0]), ("p0", p0), ("p1", p1)):
+        for i, t in enumerate(worker[2]):
+            log(f"[multiprocess] {name} pass {i + 1}: {t}")
+    return {"multiprocess-1proc": {"local_correlation": s_launch},
+            "multiprocess-2proc": {"local_correlation": p0[3] + p1[3]}}
+
+
+MESH_SPLIT_ERROR = "mesh shape {'data': 2, 'model': 1} needs 2 devices, have 1"
+
+
+def phase_mesh(cfg, main_episodes, lgca_cfg):
+    """Phase mesh: the eval CLI with ``mesh_shape: {data: 1, model: 1}``
+    gives phase main's episode metrics (a 1-device mesh is the one-device
+    path); ``{data: 2}`` in one process raises the JAX resolver's
+    message; LGCANet_V3 eval with ``{data: 1}`` runs its volume."""
+    import yaml
+
+    from rpnet_tpu_torch.cli import test_rpnet
+
+    results, launches, episodes, _ = run_cli_config(cfg, "mesh", mesh_shape={"data": 1,
+                                                                             "model": 1})
+    with open(os.path.join(WORK, "out_mesh", "log_eval")) as f:
+        printed = "[mesh {'data': 1, 'model': 1} over 1 local devices]" in f.read()
+    worst = largest_diff(episodes, main_episodes) if len(episodes) == len(main_episodes) \
+        else float("inf")
+    if worst > 1e-4 or not printed:
+        raise AssertionError(f"[mesh] {{data: 1, model: 1}}: episode metrics {worst} from "
+                             f"phase main's, mesh line printed {printed}")
+    path = os.path.join(WORK, "eval_mesh2.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(cfg, mesh_shape={"data": 2}, out_dir=os.path.join(WORK, "out_mesh2")),
+                       f)
+    try:
+        test_rpnet.main(["--yaml", path])
+        raise AssertionError("[mesh] {data: 2} on one card ran")
+    except ValueError as e:
+        if str(e) != MESH_SPLIT_ERROR:
+            raise
+    path = os.path.join(WORK, "lgca_mesh.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(lgca_cfg, mesh_shape={"data": 1}, ckpt=None,
+                            out_dir=os.path.join(WORK, "out_lgca_mesh")), f)
+    res = test_rpnet.main(["--yaml", path])
+    if res["volumes"] != 1 or res["failed_volumes"]:
+        raise AssertionError(f"[mesh] LGCA {{data: 1}}: {res}")
+    log(f"[mesh] {{data: 1, model: 1}}: {results['episodes']} episodes "
+        f"{'equal to' if worst == 0 else f'within {worst:.3g} of'} phase main's, "
+        f"launches {launches}; {{data: 2}} raised \"{MESH_SPLIT_ERROR}\"; LGCA {{data: 1}}: 1 "
+        f"volume, {res['volumes_per_sec']:.4f} volumes/s (cold), dice "
+        + json.dumps({k: v["dice"] for k, v in res["classes"].items()}))
+    return launches
+
+
+PREPROCESS_SHAPE = (280, 272, 272)   # the LGCA phases' volume (seed 4)
+
+
+def phase_preprocess():
+    """Phase preprocess: one synthetic CT volume at full size
+    (``PREPROCESS_SHAPE``, seed 4): the host body mask
+    (``body_mask_volume``, timed); the torch morphology twins (radius 7) on
+    the card over the whole volume, equal to the same functions on the CPU
+    on every 8th slice (they work slice by slice), and Otsu's threshold
+    equal or one bin apart (logged which), each timed on the card;
+    ``affine_register_volumes`` (50 steps, 5 slices of a smoothed pair) on
+    the card against the CPU: theta within 1e-3; ``preprocess_patient`` on
+    one synthetic 48×272×272 patient into the work directory."""
+    import numpy as np
+    import torch
+    from scipy.ndimage import gaussian_filter, shift
+
+    from rpnet_tpu_torch.core import nrrd_io
+    from rpnet_tpu_torch.core.synthetic import make_patient
+    from rpnet_tpu_torch.preprocess import abd110, morphology
+    from rpnet_tpu_torch.preprocess.offline_registration import affine_register_volumes
+    from rpnet_tpu_torch.utils.timing import cuda_ms
+
+    vol = make_patient(PREPROCESS_SHAPE, 4)[0].astype(np.float32)
+    mid = PREPROCESS_SHAPE[0] // 2
+    t0 = time.time()
+    body = morphology.body_mask_volume(vol)
+    host_s = time.time() - t0
+    # the twins work slice by slice: every 8th slice is held against the CPU,
+    # the whole volume timed on the card
+    every = slice(None, None, 8)
+    cpu_mask, card_mask = torch.from_numpy(body[every]), torch.from_numpy(body).cuda()
+    times = {}
+    for name in ("dilate", "erode", "closing", "opening"):
+        fn = getattr(morphology, f"{name}_torch")
+        want = fn(cpu_mask, 7)
+        got = fn(card_mask, 7)[every]
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"[preprocess] {name}_torch: card and CPU differ on "
+                                 f"{int((got.cpu() != want).sum())} voxels")
+        times[name] = cuda_ms(lambda: fn(card_mask, 7), 5)
+    cpu_vol, card_vol = torch.from_numpy(vol), torch.from_numpy(vol).cuda()
+    t_cpu = float(morphology.otsu_threshold_torch(cpu_vol))
+    t_card = float(morphology.otsu_threshold_torch(card_vol))
+    bin_width = (float(cpu_vol.max()) - float(cpu_vol.min())) / 256
+    bins_apart = round(abs(t_card - t_cpu) / bin_width)
+    if bins_apart > 1 or (bins_apart == 0 and t_card != t_cpu):
+        raise AssertionError(f"[preprocess] Otsu: card {t_card}, CPU {t_cpu}")
+    times["otsu"] = cuda_ms(lambda: morphology.otsu_threshold_torch(card_vol), 5)
+    log(f"[preprocess] {'x'.join(map(str, PREPROCESS_SHAPE))} volume: host body_mask_volume "
+        f"{host_s:.2f}s ({body.mean():.3f} of voxels body); radius-7 twins on the card equal "
+        f"to the CPU's on every 8th slice; Otsu card {t_card} CPU {t_cpu} "
+        f"({'equal' if bins_apart == 0 else 'one bin apart'}, host numpy "
+        f"{morphology.otsu_threshold(vol[mid]):.2f} on slice {mid}); card ms "
+        + json.dumps({k: round(v, 4) for k, v in times.items()}))
+
+    fixed = gaussian_filter(vol[mid - 2:mid + 3], (0, 3, 3))
+    moving = np.stack([shift(s, (4.0, -6.0), order=1, mode="nearest") for s in fixed])
+    thetas = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.time()
+        warped, thetas[dev] = affine_register_volumes(moving, fixed, iters=50, device=dev)
+        thetas[dev + "_s"] = time.time() - t0
+    diff = float(np.abs(thetas["cuda"] - thetas["cpu"]).max())
+    err = (float(np.abs(moving - fixed).mean()), float(np.abs(warped - fixed).mean()))
+    log(f"[preprocess] affine_register_volumes (5 smoothed 272x272 slices, 50 steps): theta "
+        f"card {np.round(thetas['cuda'], 5).tolist()}, CPU - card {diff:.3g} (bound 1e-3); "
+        f"seconds card {thetas['cuda_s']:.2f} CPU {thetas['cpu_s']:.2f}; mean |moving - fixed| "
+        f"{err[0]:.2f} -> {err[1]:.2f} after")
+    if diff > 1e-3:
+        raise AssertionError(f"[preprocess] affine theta card vs CPU {diff}")
+
+    pvol, masks = make_patient((48, 272, 272), 0)
+    std = os.path.join(WORK, "preprocess", "standard", "p000")
+    os.makedirs(os.path.join(std, "structures"), exist_ok=True)
+    nrrd_io.write(os.path.join(std, "img.nrrd"), np.swapaxes(pvol, 0, -1))
+    nrrd_io.write(os.path.join(std, "structures", "Liver.nrrd"),
+                  np.swapaxes(masks["Liver"], 0, -1))
+    save = os.path.join(WORK, "preprocess", "out")
+    t0 = time.time()
+    res = abd110.preprocess_patient("p000", os.path.dirname(std), save, roi_names=["Liver"])
+    written = sorted(os.listdir(save))
+    if res["n_rois"] != 1 or len(written) != 4:
+        raise AssertionError(f"[preprocess] preprocess_patient: {res}, wrote {written}")
+    log(f"[preprocess] preprocess_patient: {res['shape']} in {time.time() - t0:.2f}s, "
+        f"wrote {written}")
+    return {"theta_diff": diff}
+
+
+def phase_debug_nans(cfg):
+    """Phase debug-nans: the eval CLI with ``debug_nans: true`` on two
+    volumes (2 episodes: the fewest with a support each) runs clean on the
+    card (11 launches of row 1 an episode, no failure); with a NaN planted
+    in episode 0's query volume, episode 0 raises at its first NaN and the
+    CLI counts it as the one failed episode, as the JAX CLI counts
+    ``jax_debug_nans``'s error."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from rpnet_tpu_torch.cli import test_rpnet
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.episode.sampler import EpisodeSampler
+
+    with open(cfg["eval_set_name"]) as f:
+        pids = f.read().split()[:2]
+    split = os.path.join(WORK, "debug_nans_split.csv")
+    with open(split, "w") as f:
+        f.write("\n".join(pids) + "\n")
+    one = dict(cfg, eval_set_name=split, debug_nans=True)
+    sampler = EpisodeSampler(one["data_dir"], split, Config(one))
+    ci, di = sampler.indices[0]
+    pid = sampler.data_info[ci][di]["pid"]
+    t0 = time.time()
+    results, launches, _, _ = run_cli_config(one, "debug_nans")
+    clean_s = time.time() - t0
+    if results["episodes"] != 2 or launches != {"local_correlation": 22}:
+        raise AssertionError(f"[debug-nans] clean run: {results['episodes']} episodes, "
+                             f"launches {launches}")
+    load = EpisodeSampler.load_image_and_mask
+
+    def poisoned(s, p, roi):
+        img, mask = load(s, p, roi)
+        if p == pid:
+            img = img.copy()
+            img[tuple(n // 2 for n in img.shape)] = np.nan
+        return img, mask
+
+    path = os.path.join(WORK, "eval_debug_nans_poisoned.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(one, out_dir=os.path.join(WORK, "out_debug_nans_poisoned")), f)
+    EpisodeSampler.load_image_and_mask = poisoned
+    try:
+        poisoned_results = test_rpnet.main(["--yaml", path])
+    finally:
+        EpisodeSampler.load_image_and_mask = load
+    with open(os.path.join(WORK, "out_debug_nans_poisoned", "log_eval")) as f:
+        lines = f.read().splitlines()
+    caught = [ln for ln in lines
+              if ln.startswith(("FloatingPointError:", "RuntimeError:")) and "nan" in ln]
+    if (poisoned_results["failed_episodes"] != 1 or not caught
+            or not any(ln.startswith("0 EPISODE FAILED") for ln in lines)):
+        raise AssertionError(f"[debug-nans] a NaN in episode 0's query volume: "
+                             f"{poisoned_results['failed_episodes']} failed episodes, "
+                             f"errors {caught}")
+    if torch.is_anomaly_enabled():
+        raise AssertionError("[debug-nans] anomaly detection left on after the CLI")
+    log(f"[debug-nans] 2 episodes with debug_nans clean in {clean_s:.1f}s (launches "
+        f"{launches}); with a NaN in episode 0's query volume episode 0 raised and "
+        f"was counted failed (1 of 2): {caught[0]}")
+    return launches
+
+
 def gpu_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2875,6 +3335,11 @@ PHASES = {
     "lgca-profile": (lambda run: profile_lgca(run.lgca_data()[1],
                                               run.results["lgca-train"]["checkpoint"]),
                      ("lgca-train",)),
+    "multiprocess": (lambda run: phase_multiprocess(run.eval_data()["cfg"]), ("main",)),
+    "mesh": (lambda run: phase_mesh(run.eval_data()["cfg"], run.results["main"]["episodes"],
+                                    run.lgca_data()[1]), ("main",)),
+    "preprocess": (lambda run: phase_preprocess(), ()),
+    "debug-nans": (lambda run: phase_debug_nans(run.eval_data()["cfg"]), ()),
 }
 
 
@@ -2933,7 +3398,10 @@ def kernel_entries(results):
                                           for k, v in results["deform"][0].items()}),
                  **ran("eval-3d", lambda: {"eval3d": results["eval-3d"]}),
                  **{k: v["launches"] for k, v in (get("serve") or {}).items()},
-                 **ran("lgca-eval", lambda: {"lgca-eval": {}})}   # it requires none
+                 **ran("lgca-eval", lambda: {"lgca-eval": {}}),   # it requires none
+                 **(get("multiprocess") or {}),
+                 **ran("mesh", lambda: {"mesh": results["mesh"]}),
+                 **ran("debug-nans", lambda: {"debug-nans": results["debug-nans"]})}
     train_runs = {**ran("training", lambda: {"train": results["training"]["launches"]}),
                   **ran("train-deform", lambda: {"train-deform": results["train-deform"]}),
                   **{f"train-{k}": v for k, v in (get("train-breadth") or {}).items()},

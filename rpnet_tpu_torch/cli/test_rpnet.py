@@ -17,13 +17,26 @@ episodes ahead on the host. Episode j is queued before episode j - 1 is
 settled. The ``stage_timing`` line reports the host seconds of the ``data``,
 ``dispatch`` and ``episode_compute`` (waiting for an episode's result)
 stages. With ``eval_3d`` each pass segments every slice of each query volume
-instead (``episode/volume3d.py``, sliding windows), one process only.
+instead (``episode/volume3d.py``, sliding windows).
+
+Several processes (``multihost: true`` with ``coordinator_address``,
+``num_processes`` and ``process_id``, or torchrun's variables; on one card
+or on several) form a gloo group (``parallel/mesh.py``): each evaluates a
+strided shard of the episodes (or of the eval_3d volumes), prints their
+lines, and every process prints the same aggregate of the merged records.
+``mesh_shape`` is resolved per process as the JAX CLI resolves it; a mesh
+of one device runs, a shape needing more devices than the process has
+raises the JAX message, and a mesh of several devices raises (in-process
+sharding is ROADMAP.md queue 1 item 8's open remainder). ``debug_nans``
+turns on ``utils/profiling.enable_nan_debugging`` for the model: the first
+NaN raises ``FloatingPointError`` (or anomaly detection's error in a
+backward) inside the episode, which is then logged, counted as failed and
+skipped, as the JAX CLI counts a ``jax_debug_nans`` error.
 
 ``net: LGCANet_V3`` runs :func:`eval_lgca` instead, the JAX CLI's
 whole-volume eval (``rpnet_tpu/cli/test_rpnet.py:326-382``): per-ROI Dice of
 every eval volume, one line a volume, the average block and
-``results_eval.json``, on one card (``mesh_shape`` raises: the mesh and
-multi-process branches are ROADMAP.md queue 1 item 8).
+``results_eval.json``, with its mesh resolved the same way.
 
 It runs on the GPU (``--platform gpu``, the default) and raises when there
 is none; ``--platform cpu`` runs on the CPU with the kernels' plain versions.
@@ -33,7 +46,6 @@ is none; ``--platform cpu`` runs on the CPU with the kernels' plain versions.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import random
@@ -53,8 +65,12 @@ from rpnet_tpu_torch.episode.sampler import EpisodeSampler, EpisodeSpec
 from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
 from rpnet_tpu_torch.episode.volume3d import Volume3DRunner, Volume3DSampler
 from rpnet_tpu_torch.models.factory import build_lgcanet, build_rpnet
+from rpnet_tpu_torch.parallel.mesh import (allgather_merge_records, local_devices,
+                                           maybe_initialize_distributed,
+                                           resolve_cli_mesh, shard_indices)
 from rpnet_tpu_torch.train.lgca import evaluate_lgca_volume
 from rpnet_tpu_torch.utils.logger import Logger
+from rpnet_tpu_torch.utils.profiling import StageTimer, enable_nan_debugging
 
 parser = argparse.ArgumentParser(description="RP-Net episodic eval (PyTorch)")
 parser.add_argument("--yaml", default=None, type=str, metavar="N",
@@ -75,16 +91,23 @@ def resolve_device(platform: str) -> torch.device:
 
 
 def check_net(config: Config) -> None:
-    """The ``net`` values both CLIs run, on one card: LGCANet_V3 with a
-    ``mesh_shape`` raises (the multi-device branches are not ported)."""
+    """The ``net`` values both CLIs run."""
     net = config["net"]
     if net not in ("RP_Net", "LGCANet_V3"):
         raise NotImplementedError(f"net: {net!r} is not ported to rpnet_tpu_torch "
                                   "(ported: RP_Net, LGCANet_V3)")
-    if net == "LGCANet_V3" and config.get("mesh_shape"):
-        raise NotImplementedError(
-            "LGCANet_V3 with mesh_shape: rpnet_tpu_torch runs it on one card "
-            "(the mesh and multi-process branches are ROADMAP.md queue 1 item 8)")
+
+
+def start_process(config: Config, device: torch.device) -> torch.device:
+    """What both CLIs do before anything touches the device: join the
+    process group where the YAML or torchrun asks for it
+    (``rpnet_tpu/cli/test_rpnet.py:399-400``), then this process's device
+    (on the card ``cuda:(rank % cards)``, made current)."""
+    maybe_initialize_distributed(config)
+    if device.type == "cuda":
+        device = local_devices("cuda")[0]
+        torch.cuda.set_device(device)
+    return device
 
 
 def load_checkpoint_into(model, config: Config) -> None:
@@ -105,6 +128,9 @@ def build_runner(config: Config, device, seed: int = 0) -> EpisodeRunner:
     """The runner of the model (seeded init, or the configured ``.pth``)."""
     model = build_rpnet(config, num_iter=config["n_iter_refinement"], seed=seed)
     load_checkpoint_into(model, config)
+    # mesh_shape (or several local devices) resolved as the JAX CLI does
+    # (rpnet_tpu/cli/test_rpnet.py:76-83); episodes shard across processes
+    resolve_cli_mesh(config.get("mesh_shape"), device)
     runner = EpisodeRunner(model, config, device)
     dt = config.get("compute_dtype") or "bfloat16 (auto)"
     print(f"[network compute dtype {dt}; registration/metrics f32 — "
@@ -112,51 +138,56 @@ def build_runner(config: Config, device, seed: int = 0) -> EpisodeRunner:
     return runner
 
 
-class _StageTimer:
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        parts = [f"{k}={self.totals[k]:.3f}s/{self.counts[k]}x"
-                 for k in sorted(self.totals, key=self.totals.get, reverse=True)]
-        return "stage_timing " + " ".join(parts)
+def _per_class(eval_classes, rec_cls, rec_aff, rec_few, rec_ref=None):
+    """Per-class Dice lists rebuilt from the merged records (NaN = None, the
+    reference's empty-ground-truth convention), in episode order."""
+    value = lambda v: None if np.isnan(v) else float(v)
+    dsc_affine_list = defaultdict(list)
+    dsc_fewshot_list = defaultdict(list)
+    dsc_refinement_list = defaultdict(lambda: defaultdict(list))
+    for j in range(len(rec_cls)):
+        if rec_cls[j] < 0:
+            continue
+        cls = eval_classes[int(rec_cls[j])]
+        dsc_affine_list[cls].append(value(rec_aff[j]))
+        dsc_fewshot_list[cls].append(value(rec_few[j]))
+        if rec_ref is not None:
+            for it, v in enumerate(rec_ref[j]):
+                dsc_refinement_list[cls][it].append(value(v))
+    return dsc_affine_list, dsc_fewshot_list, dsc_refinement_list
 
 
 def evaluate(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
     """One eval pass (reference eval(), test_rpnet.py:151-258), as the JAX
     CLI's ``evaluate`` runs it.
 
-    Every episode's supports are drawn first, from the shared seed. An
-    episode takes the index-only path (:meth:`EpisodeSampler.sample_spec`,
-    :meth:`EpisodeRunner.dispatch_spec`) where the runner has a device
-    volume cache and the sampler gives a spec; otherwise it is assembled on
-    the host, by ``num_workers`` prefetch threads where there are any. The
-    episodes are pipelined: episode j is queued before episode j - 1 is
-    settled, and the lines print in index order. Each episode's data,
-    dispatch and settle run under their own try/except, as in the JAX CLI:
-    a failure is logged and counted, and the pass goes on. Callers check the
+    Every episode's supports are drawn first, from the shared seed, in every
+    process; each process then evaluates its strided shard of the episodes
+    (all of them when it runs alone) and prints their lines, and the
+    records merge across processes, so every process aggregates and prints
+    the same numbers. An episode takes the index-only path
+    (:meth:`EpisodeSampler.sample_spec`, :meth:`EpisodeRunner.dispatch_spec`)
+    where the runner has a device volume cache and the sampler gives a spec;
+    otherwise it is assembled on the host, by ``num_workers`` prefetch
+    threads where there are any. The episodes are pipelined: episode j is
+    queued before the previous one is settled, and the lines print in index
+    order. Each episode's data, dispatch and settle run under their own
+    try/except, as in the JAX CLI: a failure is logged and counted, and the
+    pass goes on (under ``debug_nans`` a NaN is such a failure). Callers check the
     count.
     """
     eval_classes = config["eval_classes"]
     n_eps = len(sampler)
-    timer = _StageTimer()
+    T = int(config["n_iter_refinement"])
+    timer = StageTimer()
+    my_idxs = shard_indices(n_eps)
     all_picks = [sampler.draw_supports(j) for j in range(n_eps)]
     use_spec = runner.supports_spec
 
     if config.get("num_workers", 0) and not use_spec:
         iterator = iter(PrefetchingSampler(
             sampler, lookahead=2, workers=int(config["num_workers"]),
-            picks=all_picks))
+            indices=my_idxs, picks=all_picks))
 
         def fetch(j):
             ep = next(iterator)
@@ -167,9 +198,12 @@ def evaluate(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
         def fetch(j):
             return sampler.sample(j, picks=all_picks[j])
 
-    dsc_affine_list = defaultdict(list)
-    dsc_fewshot_list = defaultdict(list)
-    dsc_refinement_list = defaultdict(lambda: defaultdict(list))
+    # per-episode records (-1 / NaN = not this process's, failed, or empty
+    # ground truth): the multi-process merge is an elementwise combine
+    rec_cls = np.full(n_eps, -1, np.int32)
+    rec_aff = np.full(n_eps, np.nan, np.float64)
+    rec_few = np.full(n_eps, np.nan, np.float64)
+    rec_ref = np.full((n_eps, T), np.nan, np.float64)
 
     def settle(j, ep, queued) -> int:
         """Wait for a queued episode, record and print it; 1 if it failed."""
@@ -179,22 +213,25 @@ def evaluate(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
         except Exception:
             print(f"{j} EPISODE FAILED — skipping:\n{traceback.format_exc()}")
             return 1
-        cls = eval_classes[ep.class_id]
         supp_pid = sampler.data_info[ep.supp_pids[0][0]][ep.supp_pids[0][1]]["pid"]
         print(f"{j} {ep.pid} {supp_pid} affine ({res['ncc_warped']:.4f}, "
               f"{res['ncc_raw']:.4f}) {res['dsc_affine']}, "
               f"fewshot {res['dsc_fewshot']}", end=" ")
-        dsc_affine_list[cls].append(res["dsc_affine"])
-        dsc_fewshot_list[cls].append(res["dsc_fewshot"])
+        rec_cls[j] = ep.class_id
+        if res["dsc_affine"] is not None:
+            rec_aff[j] = res["dsc_affine"]
+        if res["dsc_fewshot"] is not None:
+            rec_few[j] = res["dsc_fewshot"]
         for it, v in res["dsc_refinement"].items():
-            dsc_refinement_list[cls][it].append(v)
+            if v is not None:
+                rec_ref[j, int(it)] = v
             print(f"ref {it} {v}, ", end=" ")
         print()
         return 0
 
     failures = 0
     pending = None
-    for j in range(n_eps):
+    for j in my_idxs:
         try:
             with timer.stage("data"):
                 ep = sampler.sample_spec(j, picks=all_picks[j]) if use_spec else None
@@ -216,6 +253,10 @@ def evaluate(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
     if pending is not None:
         failures += settle(*pending)
 
+    records, failures = allgather_merge_records((rec_cls, rec_aff, rec_few, rec_ref),
+                                                failures)
+    dsc_affine_list, dsc_fewshot_list, dsc_refinement_list = _per_class(eval_classes,
+                                                                        *records)
     for cls in eval_classes:
         aff = [d for d in dsc_affine_list[cls] if d is not None]
         few = [d for d in dsc_fewshot_list[cls] if d is not None]
@@ -233,19 +274,27 @@ def evaluate(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
 
 def evaluate_3d(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
     """One whole-volume eval pass (``eval_3d``; the JAX CLI's ``evaluate_3d``,
-    rpnet_tpu/cli/test_rpnet.py:252-320): every query slice segmented in
+    rpnet_tpu/cli/test_rpnet.py:234-320): every query slice segmented in
     sliding z-windows, the overlaps averaged, per-volume Dice aggregated per
-    class. A volume's failure is logged and counted, and the pass goes on."""
+    class. Each process evaluates its strided shard of the volumes and the
+    records merge, as in :func:`evaluate`; every volume's support is drawn
+    first, in every process, so a shard pairs each volume with the support
+    of a single-process run (the JAX CLI draws only its own volumes'
+    supports, so its shards pair others). A volume's failure is logged and
+    counted, and the pass goes on."""
     eval_classes = config["eval_classes"]
     vrunner = Volume3DRunner(runner, window=int(config.get("slice_bucket", 32)),
                              overlap=int(config.get("overlap_3d", 8)))
     vsampler = Volume3DSampler(sampler)
-    dsc_affine_list = defaultdict(list)
-    dsc_fewshot_list = defaultdict(list)
+    n_vols = len(vsampler)
+    rec_cls = np.full(n_vols, -1, np.int32)
+    rec_aff = np.full(n_vols, np.nan, np.float64)
+    rec_few = np.full(n_vols, np.nan, np.float64)
     failures = 0
-    for j in range(len(vsampler)):
+    all_picks = [vsampler.draw_support(j) for j in range(n_vols)]
+    for j in shard_indices(n_vols):
         try:
-            supp_img, supp_lab, qry_img, qry_lab, meta = vsampler.sample(j)
+            supp_img, supp_lab, qry_img, qry_lab, meta = vsampler.sample(j, all_picks[j])
             res = vrunner.run_volume(supp_img, supp_lab, qry_img, qry_lab,
                                      sampler=sampler, supp_key=meta["supp_key"],
                                      qry_key=meta["qry_key"])
@@ -253,16 +302,20 @@ def evaluate_3d(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
             failures += 1
             print(f"{j} VOLUME FAILED — skipping:\n{traceback.format_exc()}")
             continue
-        cls = eval_classes[meta["class_id"]]
         print(f"{j} {meta['pid']} {meta['supp_pid']} affine {res.dsc_affine}, "
               f"fewshot {res.dsc_fewshot} ({res.n_windows} windows)")
+        rec_cls[j] = meta["class_id"]
         if res.dsc_affine is not None:
-            dsc_affine_list[cls].append(res.dsc_affine)
+            rec_aff[j] = res.dsc_affine
         if res.dsc_fewshot is not None:
-            dsc_fewshot_list[cls].append(res.dsc_fewshot)
+            rec_few[j] = res.dsc_fewshot
 
+    records, failures = allgather_merge_records((rec_cls, rec_aff, rec_few), failures)
+    dsc_affine_list, dsc_fewshot_list, _ = _per_class(eval_classes, *records)
     for cls in eval_classes:
-        aff, few = dsc_affine_list[cls], dsc_fewshot_list[cls]
+        aff = [d for d in dsc_affine_list[cls] if d is not None]
+        few = [d for d in dsc_fewshot_list[cls] if d is not None]
+        dsc_affine_list[cls], dsc_fewshot_list[cls] = aff, few
         print(f"{cls}, affine {np.average(aff) if aff else float('nan')}, "
               f"fewshot {np.average(few) if few else float('nan')}")
     if failures:
@@ -276,11 +329,11 @@ def main(argv=None):
         print("No configuration file")
         return None
     device = resolve_device(args.platform)
-
     config = Config(load_yaml(args.yaml))
     # eval uses the test-time refinement depth (test_rpnet.py:51)
     config = config.replace(n_iter_refinement=config["n_test_iter_refinement"])
     check_net(config)
+    device = start_process(config, device)
 
     seed = int(config.get("seed", 0))
     np.random.seed(seed)
@@ -298,9 +351,13 @@ def main(argv=None):
                                  config)
         print(f"[length of eval loader {len(sampler)}]")
         runner = build_runner(config, device, seed)
+        if config.get("debug_nans"):
+            enable_nan_debugging(True, runner.model)
         n_runs = args.n_runs or config.get("n_runs", 1)
         return run_eval_protocol(runner, sampler, config, out_dir, n_runs)
     finally:
+        if config.get("debug_nans"):
+            enable_nan_debugging(False)
         sys.stdout = logger.terminal
         logger.close()
 
@@ -317,6 +374,9 @@ def eval_lgca(config: Config, device, out_dir: str, seed: int = 0) -> Dict:
     print(f"[length of LGCA eval loader {len(sampler)}]")
     model = build_lgcanet(config, seed=seed, device=device)
     load_checkpoint_into(model, config)
+    resolve_cli_mesh(config.get("mesh_shape"), device, prefix="LGCA ")
+    if config.get("debug_nans"):
+        enable_nan_debugging(True, model)
 
     rois = list(config["roi_names"])
     per_class = defaultdict(list)

@@ -31,9 +31,16 @@ demons blur keeps f32 (``registration/gaussian.no_tf32``).
 ``rpnet_tpu/cli/train.py:73-150``: one whole-volume sample a step (volume
 ``j % len(sampler)``, its ``lgca_slices`` slices drawn from
 ``np.random.RandomState(seed)``), the same ``epoch N loss X (Y
-volumes/s)`` line and ``.pth`` checkpoints with the upstream LGCA names, on
-one card (``mesh_shape`` raises: the mesh and multi-process branches are
-ROADMAP.md queue 1 item 8).
+volumes/s)`` line and ``.pth`` checkpoints with the upstream LGCA names; its
+``mesh_shape`` is resolved with the slice batch as divisor, as the JAX CLI
+resolves it (a mesh of one device runs; one of several raises: in-process
+sharding is ROADMAP.md queue 1 item 8's open remainder).
+
+With ``multihost`` (or torchrun's variables) the process joins the gloo
+group first (``parallel/mesh.py``); RP_Net training then runs per process,
+as in the JAX CLI. ``debug_nans`` turns on
+``utils/profiling.enable_nan_debugging`` for the model: the first NaN of a
+forward or backward raises.
 """
 
 from __future__ import annotations
@@ -48,17 +55,19 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from rpnet_tpu_torch.cli.test_rpnet import check_net, resolve_device
+from rpnet_tpu_torch.cli.test_rpnet import check_net, resolve_device, start_process
 from rpnet_tpu_torch.config import Config, load_yaml
 from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
 from rpnet_tpu_torch.episode.sampler import EpisodeSampler
 from rpnet_tpu_torch.models.factory import build_rpnet
+from rpnet_tpu_torch.parallel.mesh import resolve_cli_mesh
 from rpnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from rpnet_tpu_torch.train.convert import (convert_torchvision_vgg16, load_into,
                                            load_torch_checkpoint)
 from rpnet_tpu_torch.train.lgca import init_lgca, make_lgca_train_step
 from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
 from rpnet_tpu_torch.utils.logger import Logger
+from rpnet_tpu_torch.utils.profiling import enable_nan_debugging
 
 parser = argparse.ArgumentParser(description="RP-Net training (PyTorch)")
 parser.add_argument("--yaml", default=None)
@@ -141,6 +150,7 @@ def main(argv=None):
     device = resolve_device(args.platform)
     config = Config(load_yaml(args.yaml))
     check_net(config)
+    device = start_process(config, device)
 
     seed = int(config.get("seed", 0))
     np.random.seed(seed)
@@ -157,6 +167,8 @@ def main(argv=None):
             return train_lgca(config, args, device, out_dir, seed)
         return train(config, args, device, out_dir, seed)
     finally:
+        if config.get("debug_nans"):
+            enable_nan_debugging(False)
         sys.stdout = logger.terminal
         logger.close()
 
@@ -179,6 +191,8 @@ def train(config: Config, args, device, out_dir: str, seed: int) -> Dict:
     model = build_rpnet(config, num_iter=config["n_iter_refinement"], seed=seed,
                         device=device, align=True)
     apply_pretrained(model, config)
+    if config.get("debug_nans"):
+        enable_nan_debugging(True, model)
     optimizer = make_optimizer(model.parameters(), config, steps_per_epoch)
     state = {"step": 0}
     start_epoch = 0
@@ -264,6 +278,12 @@ def train_lgca(config: Config, args, device, out_dir: str, seed: int) -> Dict:
         start_epoch = restore_checkpoint(config["ckpt"], model, optimizer,
                                          steps_per_epoch)
         state["step"] = start_epoch * steps_per_epoch
+    # the slice batch shards over the mesh's data axis in the JAX CLI
+    # (rpnet_tpu/cli/train.py:113-123); here a mesh of one device runs
+    resolve_cli_mesh(config.get("mesh_shape"), device,
+                        batch_divisor=int(config.get("lgca_slices", 8)), prefix="LGCA ")
+    if config.get("debug_nans"):
+        enable_nan_debugging(True, model)
     step = make_lgca_train_step(model, optimizer)
     rng = np.random.RandomState(seed)
 

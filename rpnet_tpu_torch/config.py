@@ -36,6 +36,12 @@ _DEFAULTS: Dict[str, Any] = {
     "crop_size": [256, 256],
     "pad_value": -1024,
     "HU_range": [-1024, 3072],
+    # --- brain/volume reader geometry (brain_reader.py:297-358;
+    #     episode/brain.py reads them) ---
+    "train_max_crop_size": [256, 256, 256],
+    "test_max_size": [256, 320, 320],
+    "jitter_range": [4, 16, 16],
+    "bbox_border": 8,
     # --- episode shape (few_shot_reader.py:256-257, :464-473, :517) ---
     "n_shot": 1,
     "n_way": 1,
@@ -76,6 +82,7 @@ _DEFAULTS: Dict[str, Any] = {
     # --- augmentation (example.yml:34,111-114) ---
     "do_intaug": True,
     "gamma_range": [0.5, 1.5],
+    "do_elastic": True,        # BrainReader's elastic augmentation (train mode)
     # --- training (example.yml:62-73; trainer.py:46-218) ---
     "batch_size": 4,
     "optimizer": "Adam",
@@ -111,6 +118,13 @@ _DEFAULTS: Dict[str, Any] = {
     "eval_3d": False,           # whole-volume sliding-window eval
     "overlap_3d": 8,            # z-overlap between eval_3d windows
     "slice_bucket": 32,         # eval_3d window (the JAX runner's bucket)
+    "mesh_shape": None,         # e.g. {"data": 2}: resolved per process
+                                # (parallel/mesh.resolve_local_mesh); a mesh
+                                # of one device a process runs
+    # multihost, coordinator_address, num_processes, process_id (the process
+    # group, parallel/mesh.maybe_initialize_distributed) and debug_nans
+    # (utils/profiling.enable_nan_debugging) are read with .get, as the JAX
+    # package reads them
     # --- LGCANet_V3 (lgca_net_v3.py; rpnet_tpu/episode/lgca_data.py) ---
     "context_net_downsample_scale": [2, 2, 2],   # context volume stride (z, y, x)
 }

@@ -9,13 +9,16 @@ The counterparts of ``rpnet_tpu/core/metrics.py``:
     where the host metric returns None);
   * ``ncc`` — negative normalized cross-correlation
     (net/registration.py:157-160), global or per slice, optionally over
-    weighted elements only.
+    weighted elements only;
+  * ``mse`` (net/registration.py:147-154) and ``precision_and_recall``
+    (utils/util.py:393-403, numpy).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 
@@ -66,6 +69,11 @@ def dice(pred, target, weight=None):
     return 2.0 * inter / torch.clamp(tsum + psum, min=1e-12), tsum > 0
 
 
+def mse(y_pred, y_true):
+    """Mean squared error (net/registration.py:147-154, mask=None path)."""
+    return torch.mean((y_true - y_pred) ** 2)
+
+
 def ncc(moving, fixed, weight=None, dims=None):
     """Negative NCC over the axes ``dims`` (default: all, one global NCC;
     ``(1, 2, 3)`` gives one per slice of an (S, H, W, C) batch); with
@@ -84,3 +92,16 @@ def ncc(moving, fixed, weight=None, dims=None):
     num = torch.sum(fc * mc, dim=dims)
     den = torch.sqrt(torch.sum(fc ** 2, dim=dims) * torch.sum(mc ** 2, dim=dims) + 1e-10)
     return -1.0 * num / den
+
+
+def precision_and_recall(label_gt, label_pred, n_class: int):
+    """Per-class precision/recall (utils/util.py:393-403) without sklearn."""
+    gt = np.asarray(label_gt, dtype=np.int64).ravel()
+    pr = np.asarray(label_pred, dtype=np.int64).ravel()
+    precision = np.zeros(n_class, dtype=np.float32)
+    recall = np.zeros(n_class, dtype=np.float32)
+    for c in range(n_class):
+        tp = np.sum((pr == c) & (gt == c))
+        precision[c] = tp / max(np.sum(pr == c), 1)
+        recall[c] = tp / max(np.sum(gt == c), 1)
+    return precision, recall

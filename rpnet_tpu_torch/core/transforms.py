@@ -8,12 +8,15 @@ what the samplers run:
   * ``keep_only_annotation_z_slices`` — dataset/few_shot_reader.py:17-24
   * ``crop``            — dataset/few_shot_reader.py:63-75
   * ``gamma_transform`` — dataset/few_shot_reader.py:201-211 (train only)
+  * ``truncate_HU_uint8``, ``pad2same_size(_3d)``, ``resample`` and
+    ``onehot2multi_mask`` — for the preprocessing and visualization modules
+    (``rpnet_tpu/core/transforms.py:64-164``)
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -35,6 +38,12 @@ def normalize(img: np.ndarray, minimum: float = -1024, maximum: float = 3076) ->
     return img
 
 
+def truncate_HU_uint8(img: np.ndarray) -> np.ndarray:
+    """Window HU to [-1200, 600] and quantize to uint8 (utils/util.py:879-887)."""
+    scaled = (np.asarray(img, np.float64) + 1200.0) / 1800.0
+    return (np.clip(scaled, 0.0, 1.0) * 255).astype("uint8")
+
+
 def pad2factor(image: np.ndarray, factor: int = 16, pad_value: float = 0) -> np.ndarray:
     """Pad a (D, H, W) volume at the high end so each dim divides ``factor``."""
     depth, height, width = image.shape
@@ -43,6 +52,22 @@ def pad2factor(image: np.ndarray, factor: int = 16, pad_value: float = 0) -> np.
     w = int(math.ceil(width / float(factor))) * factor
     pad = [[0, d - depth], [0, h - height], [0, w - width]]
     return np.pad(image, pad, "constant", constant_values=pad_value)
+
+
+def pad2same_size(imgs: Sequence[np.ndarray]) -> List[np.ndarray]:
+    H = max(im.shape[0] for im in imgs)
+    W = max(im.shape[1] for im in imgs)
+    return [np.pad(im, [[0, H - im.shape[0]], [0, W - im.shape[1]]]) for im in imgs]
+
+
+def pad2same_size_3d(imgs: Sequence[np.ndarray]) -> List[np.ndarray]:
+    D = max(im.shape[0] for im in imgs)
+    H = max(im.shape[1] for im in imgs)
+    W = max(im.shape[2] for im in imgs)
+    return [
+        np.pad(im, [[0, D - im.shape[0]], [0, H - im.shape[1]], [0, W - im.shape[2]]])
+        for im in imgs
+    ]
 
 
 def truncate_image(image: np.ndarray, num_slice: int, num_x: int, num_y: int) -> np.ndarray:
@@ -81,6 +106,27 @@ def crop(img: np.ndarray, mask: np.ndarray, crop_size: Sequence[int],
     img_pad = np.pad(img_crop, pad_width, mode="constant", constant_values=img_pad_value)
     mask_pad = np.pad(mask_crop, pad_width, mode="constant", constant_values=mask_pad_value)
     return img_pad, mask_pad
+
+
+def resample(image: np.ndarray, spacing, new_spacing=(1.0, 1.0, 1.0), order: int = 1):
+    """Resample to ``new_spacing`` (utils/util.py:37-60). Returns (image, actual_spacing)."""
+    import scipy.ndimage
+
+    spacing = np.asarray(spacing, dtype=np.float64)
+    new_spacing = np.asarray(new_spacing, dtype=np.float64)
+    new_shape = np.round(np.asarray(image.shape) * spacing / new_spacing)
+    resample_spacing = spacing * np.asarray(image.shape) / new_shape
+    resize_factor = new_shape / np.asarray(image.shape)
+    image_new = scipy.ndimage.zoom(image, resize_factor, mode="nearest", order=order)
+    return image_new, resample_spacing
+
+
+def onehot2multi_mask(onehot: np.ndarray) -> np.ndarray:
+    num_class, D, H, W = onehot.shape
+    multi_mask = np.zeros((D, H, W))
+    for i in range(1, num_class):
+        multi_mask[onehot[i] > 0] = i
+    return multi_mask
 
 
 def gamma_transform(img: np.ndarray, gamma_range: Sequence[float],

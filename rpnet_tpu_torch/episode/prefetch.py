@@ -39,21 +39,24 @@ class PrefetchingSampler:
     """
 
     def __init__(self, sampler: EpisodeSampler, lookahead: int = 2,
-                 workers: int = 2, picks=None):
-        """Iterates every episode of ``sampler`` in order. ``picks``: episode
-        id → support picks drawn beforehand. Without it the picks are drawn
-        on the caller's thread at submit time."""
+                 workers: int = 2, indices=None, picks=None):
+        """Iterates the episodes ``indices`` of ``sampler`` in that order
+        (default: all; a process of a multi-process eval passes its shard).
+        ``picks``: episode id → support picks drawn beforehand. Without it
+        the picks are drawn on the caller's thread at submit time."""
         self.sampler = sampler
         self.lookahead = max(1, lookahead)
         self.workers = max(1, workers)
+        self.indices = list(range(len(sampler))) if indices is None else list(indices)
         self.picks = picks
 
     def __iter__(self) -> Iterator[Episode]:
-        n = len(self.sampler)
+        n = len(self.indices)
         with ThreadPoolExecutor(max_workers=self.workers) as pool:
             pending: "queue.Queue[Future]" = queue.Queue()
 
-            def submit(idx: int):
+            def submit(pos: int):
+                idx = self.indices[pos]
                 picks = (list(self.picks[idx]) if self.picks is not None
                          else self.sampler.draw_supports(idx))
                 pending.put(pool.submit(self.sampler.sample, idx, picks))

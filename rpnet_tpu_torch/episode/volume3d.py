@@ -115,7 +115,10 @@ class Volume3DSampler:
     """Whole-volume episodes (the reference's Fewshot3DReader intent):
     ``sample(idx)`` → (support_vol, support_lab, query_vol, query_lab, meta).
     The support volume is drawn by stdlib ``random.choices``, as the JAX
-    sampler draws it, so one seed picks the same support in both."""
+    sampler draws it, so one seed picks the same support in both. A caller
+    that samples only some volumes (a process's shard) draws every volume's
+    support first (:meth:`draw_support`), in order, and passes its own
+    ``pick``: then a shard sees the supports of a single-process run."""
 
     def __init__(self, sampler: EpisodeSampler):
         self.sampler = sampler
@@ -123,12 +126,19 @@ class Volume3DSampler:
     def __len__(self):
         return len(self.sampler)
 
-    def sample(self, idx: int):
+    def draw_support(self, idx: int) -> int:
+        """The support volume of volume ``idx``, from the stdlib stream."""
+        s = self.sampler
+        ci, di = s.indices[idx]
+        pool = [i for i in range(len(s.data_info[ci])) if i != di]
+        return random.choices(pool, k=1)[0]
+
+    def sample(self, idx: int, pick: Optional[int] = None):
         s = self.sampler
         ci, di = s.indices[idx]
         pid = s.data_info[ci][di]["pid"]
-        pool = [i for i in range(len(s.data_info[ci])) if i != di]
-        pick = random.choices(pool, k=1)[0]
+        if pick is None:
+            pick = self.draw_support(idx)
         supp_pid = s.data_info[ci][pick]["pid"]
         supp_img, supp_lab = s.load_image_and_mask(supp_pid, s.classes[ci])
         qry_img, qry_lab = s.load_image_and_mask(pid, s.classes[ci])

@@ -1,10 +1,12 @@
 """LGCANet_V3 training step and whole-volume eval.
 
-The counterpart of ``rpnet_tpu/train/lgca.py`` on one card (its
-``sharded_lgca_train_step`` over a mesh is not ported: the mesh and
-multi-process branches are ROADMAP.md queue 1 item 8). One train step: the 3D context net over the downsampled volume and
-the fused 2D U-Net over a slice batch in training mode (batch norm
-statistics over all the step's slices), the per-class 2D + 3D Dice loss
+The counterpart of ``rpnet_tpu/train/lgca.py`` on one device (its
+``sharded_lgca_train_step`` and ``evaluate_lgca_volume(mesh=...)`` over a
+mesh of several devices are not ported: in-process multi-device sharding is
+ROADMAP.md queue 1 item 8's open remainder). One train step: the 3D
+context net over the downsampled volume and the fused 2D U-Net over a slice
+batch in training mode (batch norm statistics over all the step's slices),
+the per-class 2D + 3D Dice loss
 (lgca_net_v3.py:629-649) averaged over classes, and the YAML's optimizer
 (``train/trainer.make_optimizer``, AdamW with the step-decay schedule).
 """

@@ -15,8 +15,10 @@ a working shape of 32×32×32, 4 slices a step, ``feature_scale`` 8:
     loss lines agree to 1e-4 relative; the port's checkpoint is the
     reference's file with the upstream LGCA names, and the port's CLI resumes
     from it at the next epoch;
-  * a ``mesh_shape`` refused by the port's eval CLI (one card; the train CLI's
-    refusal is held in ``test_torch_train_cli.py``).
+  * a ``mesh_shape`` that needs more devices than the process has, refused
+    by the port's eval CLI with the JAX resolver's message (the train CLI's
+    refusal is held in ``test_torch_train_cli.py``; a 1-device mesh runs,
+    ``test_torch_parallel.py``).
 
 The JAX CLIs see one of the suite's 8 virtual CPU devices (``jax.
 local_devices`` patched, ``one_jax_device``): with more they take their mesh
@@ -126,7 +128,14 @@ def test_lgca_train_cli_parity(tmp_path):
 
 
 def test_lgca_eval_cli_refuses_a_mesh(tmp_path):
-    cfg = dict(net="LGCANet_V3", roi_names=ROIS, mesh_shape={"data": 2},
-               out_dir=str(tmp_path / "out"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    from rpnet_tpu.parallel.mesh import resolve_local_mesh
+
+    with pytest.raises(ValueError) as jax_err:
+        resolve_local_mesh({"data": 2}, devices=jax.devices()[:1])
+    paths = generate_dataset(str(tmp_path / "data"), n_train=1, n_test=1,
+                             shape=(16, 32, 32), seed=0)
+    cfg = dict(_config(paths, str(tmp_path / "out"), None), mesh_shape={"data": 2})
+    with pytest.raises(ValueError) as err:
         _run(torch_eval_cli, tmp_path, "mesh", cfg, ("--platform", "cpu"))
+    assert str(err.value) == str(jax_err.value) == (
+        "mesh shape {'data': 2, 'model': 1} needs 2 devices, have 1")

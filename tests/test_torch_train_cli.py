@@ -182,11 +182,11 @@ def test_train_cli_refuses_to_fall_back_to_cpu(tmp_path, monkeypatch):
                                        ("unet_normalize_type", "LayerNorm"),
                                        ("optimizer", "rmsprop")])
 def test_train_step_refuses_what_is_not_ported(key, value, tmp_path):
-    """What the port's training still refuses: LGCANet_V3 with a
-    ``mesh_shape`` in the train CLI (the port trains it on one card; the
-    JAX CLI's mesh branch is ROADMAP.md queue 1 item 8), and what the JAX
-    package refuses too: a ``unet_normalize_type`` its ``Norm2d`` does not
-    know and an optimizer its ``make_optimizer`` does not know."""
+    """What the port's training refuses as the JAX package does: LGCANet_V3
+    with a ``mesh_shape`` that needs more devices than the process has (the
+    JAX resolver's message; a 1-device mesh trains,
+    ``test_torch_parallel.py``), a ``unet_normalize_type`` its ``Norm2d``
+    does not know and an optimizer its ``make_optimizer`` does not know."""
     from rpnet_tpu.models.blocks import Norm2d
     from rpnet_tpu.train.trainer import make_optimizer as jax_make_optimizer
     from rpnet_tpu_torch.models.factory import build_rpnet
@@ -194,11 +194,26 @@ def test_train_step_refuses_what_is_not_ported(key, value, tmp_path):
 
     cfg = {key: value}
     if key == "net":
+        from rpnet_tpu.parallel.mesh import resolve_local_mesh
+
+        with pytest.raises(ValueError) as jax_err:
+            resolve_local_mesh({"data": 2}, devices=jax.devices()[:1], batch_divisor=4)
+        paths = generate_dataset(str(tmp_path / "data"), n_train=1, n_test=1,
+                                 shape=(16, 32, 32), seed=0)
         ypath = str(tmp_path / "lgca.yml")
         with open(ypath, "w") as f:
-            yaml.safe_dump(dict(cfg, mesh_shape={"data": 2}, out_dir=str(tmp_path / "out")), f)
-        with pytest.raises(NotImplementedError, match="LGCANet_V3 with mesh_shape"):
-            torch_cli.main(["--yaml", ypath, "--platform", "cpu"])
+            yaml.safe_dump(dict(cfg, mesh_shape={"data": 2}, out_dir=str(tmp_path / "out"),
+                                data_dir=paths["data_dir"], train_set_name=paths["train_csv"],
+                                num_slice=16, num_x=32, num_y=32, roi_names=["Liver"],
+                                lgca_slices=4, feature_scale=8), f)
+        stdout = sys.stdout
+        try:
+            with pytest.raises(ValueError) as err:
+                torch_cli.main(["--yaml", ypath, "--platform", "cpu"])
+        finally:
+            sys.stdout = stdout
+        assert str(err.value) == str(jax_err.value) == (
+            "mesh shape {'data': 2, 'model': 1} needs 2 devices, have 1")
     elif key == "unet_normalize_type":
         with pytest.raises(NotImplementedError, match="LayerNorm"):
             Norm2d(value).init(jax.random.PRNGKey(0), np.zeros((1, 4, 4, 8), np.float32))
