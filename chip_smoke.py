@@ -236,7 +236,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
      (theta within 1e-3), ``preprocess_patient`` on a 48×272×272 patient;
   debug-nans [debug-nans] — the eval CLI with ``debug_nans: true`` on 2
      episodes runs clean; with a NaN in episode 0's query volume that
-     episode raises at its first NaN and is counted as the one failure.
+     episode raises at its first NaN and is counted as the one failure;
+  shard [shard] — in-process sharding over several devices: the host's
+     cards in turn where it has two or more, else logical devices
+     ``[cuda:0] * n`` (which it prints first). (a) phase 3's first 4
+     episodes through the eval runner over ``{data: 2}`` against the
+     one-device runner, same seeded weights, compared with cuDNN off (whose
+     per-slice results do not depend on the batch): bf16 (per-episode
+     metrics within 1e-3), f32 (1e-4) and ``do_deformable`` in bf16 (5e-3:
+     the one-device deformable runner is not deterministic on the card);
+     row 1 launched 11 times an episode on each shard
+     (``launches_by_run`` ``shard-eval-*``); with cuDNN on (bf16) the
+     difference logged, a warm pass of each timed, and one warm sharded dispatch under the sync debug mode (no
+     synchronizing call); (b) ``yamls/example_lgca.yml``'s model and shapes:
+     2 steps of the sharded LGCA step over ``{data: 2}`` (global batch
+     norms) against 2 one-device steps from the same state (loss rtol 1e-3,
+     parameters atol 5e-3, f32 TF32 off), then the eval volume with and
+     without the mesh (per-ROI Dice within 1e-3); (c) the example's
+     training block (soft masks, as phase 6's bf16 case), 2 steps of the
+     dp × tp step over ``{data: 2, model: 2}`` against 2 one-device steps (loss within 1e-4 relative; each
+     parameter's first-step gradient within 3e-2, as phase 6, or within
+     twice the difference of the one-device step on the batch's episodes in
+     another order), rows 4 and 7 launched 5 times a row and step
+     (``shard-train``).
 
 Each phase's seconds are logged as it ends (``[phases]``). Then it prints the kernel table (a ``kernels`` line and a ``{"kernels":
 ...}`` JSON line), the card's name and power limit from nvidia-smi, and as
@@ -953,8 +975,8 @@ class recorded_episodes:
             results.append(finalize_(runner, d))
             return results[-1]
 
-        def queue(runner, *args):
-            return queue_(runner, *args[:-1], True)
+        def queue(runner, *args):   # (tensors ×4, n_slices, keep, arrays[, parts])
+            return queue_(runner, *args[:6], True, *args[7:])
 
         self.cls.finalize = finalize
         if self.arrays:
@@ -1172,13 +1194,32 @@ def phase_data_paths(cfg):
     return launches_all
 
 
+def synchronizing_calls(fn):
+    """fn() under the sync debug mode → (its result, the synchronizing
+    calls it made, host ms)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # (setting the mode itself warns that it is a prototype)
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)], host_ms
+
+
 def check_dispatch_does_not_block(cfg, tag: str = "data", host: bool = True):
     """One warm episode queued on the spec and (with ``host``) on the host
     path under the sync debug mode, then one warm spec episode profiled;
     logged under ``[tag-sync]`` and ``[tag-profile]``. Returns the profile's
     device operations."""
-    import warnings
-
     import torch
 
     from rpnet_tpu_torch.cli.test_rpnet import build_runner
@@ -1192,22 +1233,6 @@ def check_dispatch_does_not_block(cfg, tag: str = "data", host: bool = True):
     picks = sampler.draw_supports(1)
     spec = sampler.sample_spec(1, picks=picks)
     ep = sampler.sample(1, picks=picks)
-
-    def synchronizing_calls(fn):
-        """fn() under the sync debug mode → (its result, the synchronizing
-        calls it made, host ms)."""
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                t0 = time.perf_counter()
-                out = fn()
-                host_ms = (time.perf_counter() - t0) * 1e3
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        # (setting the mode itself warns that it is a prototype)
-        return out, [str(w.message) for w in caught
-                     if "called a synchronizing" in str(w.message)], host_ms
 
     # the control: a known synchronizing call is seen
     _, control, _ = synchronizing_calls(lambda: torch.ones(1, device="cuda").item())
@@ -3157,6 +3182,341 @@ def phase_debug_nans(cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# in-process sharding over several devices (phase shard)
+# ---------------------------------------------------------------------------
+
+SHARD_EPISODES = 4          # phase 3's episodes through the sharded eval runner
+# per-episode Dice, sharded against one device: f32 as the CPU tests hold it;
+# bf16 the served-vs-live bound of PERF.md section 2; do_deformable (bf16)
+# 5e-3: the one-device deformable runner differs from itself by 2.1e-4 to
+# 3.8e-4 (the demons fit's grid_sample backward adds with atomics), and the
+# sharded one from it by 3.9e-4 to 1.02e-3 (my chip runs, H100)
+SHARD_EVAL_BOUNDS = {"f32": 1e-4, "bf16": 1e-3, "deform": 5e-3}
+SHARD_STEPS = 2             # train steps of each sharded step against one device
+
+
+def metric_diffs(a, b):
+    """The largest difference of two runs' per-episode metrics, by kind:
+    {"dice": ..., "ncc": ...}."""
+    dice_keys, ncc_keys = ("dsc_affine", "dsc_fewshot"), ("ncc_warped", "ncc_raw")
+    out = {}
+    for kind, pairs in (
+            ("dice", [(x[k], y[k]) for x, y in zip(a, b) for k in dice_keys]
+             + [(x["dsc_refinement"][i], y["dsc_refinement"][i])
+                for x, y in zip(a, b) for i in x["dsc_refinement"]]),
+            ("ncc", [(x[k], y[k]) for x, y in zip(a, b) for k in ncc_keys])):
+        if len(a) != len(b) or any((u is None) != (v is None) for u, v in pairs):
+            raise AssertionError("the runs settled different episodes, or an episode's "
+                                 "ground truth is empty in one run only")
+        out[kind] = max(abs(u - v) for u, v in pairs if u is not None)
+    return out
+
+
+def shard_devices(n: int):
+    """n devices for a mesh: the cards in turn where the host has two or
+    more, else n logical devices on cuda:0 → (devices, what they are)."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i % cards) for i in range(n)]
+    what = (f"real cards ({cards} on the host)" if cards >= 2 else
+            "logical devices on cuda:0 (one card: the sharded code path, not the speed "
+            "of several cards)")
+    return devices, what
+
+
+def shard_eval(cfg, devices):
+    """(a): phase 3's first ``SHARD_EPISODES`` episodes (spec path) through
+    the one-device runner and the runner over ``{data: 2}`` with the same
+    seeded weights, in bf16, in f32 and with ``do_deformable`` in bf16,
+    compared with cuDNN off (torch's own convolutions, whose per-slice
+    results do not depend on the batch, which the shards halve; TF32 off):
+    per-episode Dice within ``SHARD_EVAL_BOUNDS`` (the NCCs' difference
+    logged, and with ``do_deformable`` the one-device runner's difference
+    from itself); row 1's launches 11 an episode on each shard. In bf16 with
+    cuDNN on, as the CLI runs: the difference logged (cuDNN picks its
+    algorithms by batch size), a warm pass of each runner timed, and one
+    warm sharded dispatch under the sync debug mode. → (results, launches
+    by run, problems)."""
+    import torch
+
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.episode.pipeline import EpisodeRunner
+    from rpnet_tpu_torch.episode.sampler import EpisodeSampler
+    from rpnet_tpu_torch.models.factory import build_rpnet
+    from rpnet_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"data": 2}, devices=devices)
+    out, launches_by_run, problems = {}, {}, []
+    for tag, over in (("bf16", {}), ("f32", {"compute_dtype": "float32"}),
+                      ("deform", {"do_deformable": True})):
+        config = Config(dict(cfg, **over))
+        config = config.replace(n_iter_refinement=config["n_test_iter_refinement"])
+        sampler = EpisodeSampler(config["data_dir"], config["eval_set_name"], config)
+        n = min(SHARD_EPISODES, len(sampler))
+        picks = [sampler.draw_supports(j) for j in range(n)]
+        specs = [sampler.sample_spec(j, picks=picks[j]) for j in range(n)]
+
+        def run(runner):
+            queued = [runner.dispatch_spec(spec, sampler) for spec in specs]
+            return [runner.finalize(d) for d in queued]
+
+        one = EpisodeRunner(build_rpnet(config, num_iter=10, seed=0), config, "cuda")
+        sharded = EpisodeRunner(build_rpnet(config, num_iter=10, seed=0), config, "cuda",
+                                mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        with cudnn_off():
+            want = run(one)
+            reset_launches()
+            got = run(sharded)
+            torch.cuda.synchronize()
+            launches, per_shard = read_launches(), list(sharded.shard_launches)
+        diffs = metric_diffs(got, want)
+        worst = diffs["dice"]
+        timing, cudnn = {}, ""
+        if tag == "deform":   # the one-device runner against itself
+            with cudnn_off():
+                again = metric_diffs(run(one), want)
+            cudnn = (f"; the one-device runner against itself: Dice {again['dice']:.3g}, NCC "
+                     f"{again['ncc']:.3g}")
+        if tag == "bf16":   # cuDNN on, as the CLI runs; a warm pass of each timed alike
+            cudnn_worst = metric_diffs(run(sharded), run(one))
+            for name, runner in (("one device", one), ("sharded", sharded)):
+                t0 = time.perf_counter()
+                run(runner)
+                torch.cuda.synchronize()
+                timing[name] = n / (time.perf_counter() - t0)
+            cudnn = (f"; with cuDNN on (the CLI's setting) Dice within "
+                     f"{cudnn_worst['dice']:.3g}, NCC {cudnn_worst['ncc']:.3g}; warm "
+                     f"episodes/s one device {timing['one device']:.3f}, sharded "
+                     f"{timing['sharded']:.3f}")
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        ok = (worst <= SHARD_EVAL_BOUNDS[tag] and launches == {"local_correlation": 22 * n}
+              and per_shard == [11 * n, 11 * n])
+        log(f"[shard-eval] {tag}: {n} episodes over {{data: 2}}, cuDNN off: per-episode "
+            f"Dice within {worst:.3g} of one device (bound {SHARD_EVAL_BOUNDS[tag]}), NCC "
+            f"within {diffs['ncc']:.3g}; "
+            f"row 1's launches {launches}, per shard {per_shard} (11 an episode each); peak "
+            f"memory allocated {peak_gb:.2f} GiB" + cudnn)
+        if not ok:
+            problems.append(f"[shard-eval] {tag}: Dice {worst}, launches {launches}, "
+                            f"per shard {per_shard}")
+        launches_by_run[f"shard-eval-{tag}"] = launches
+        out[tag] = {"worst": diffs, "per_shard": per_shard, "peak_gb": peak_gb, **timing}
+        if tag == "bf16":
+            run(sharded)                              # warm again, then one dispatch checked
+            torch.cuda.synchronize()
+            d, syncs, host_ms = synchronizing_calls(lambda: sharded.dispatch_spec(specs[0],
+                                                                                  sampler))
+            sharded.finalize(d)
+            log(f"[shard-sync] a warm sharded spec dispatch: {host_ms:.1f} ms on the host, "
+                f"synchronizing calls {len(syncs)}")
+            if syncs:
+                problems.append(f"the sharded dispatch blocks the host: {syncs[:3]}")
+        del one, sharded
+        torch.cuda.empty_cache()
+    return out, launches_by_run, problems
+
+
+def shard_lgca(lgca_cfg, devices):
+    """(b): ``yamls/example_lgca.yml``'s model and shapes, ``SHARD_STEPS``
+    steps of ``sharded_lgca_train_step`` over ``{data: 2}`` against as many
+    one-device steps from the same seeded state and samples (f32, TF32 off):
+    losses within rtol 1e-3, parameters within 5e-3; then the eval volume
+    through ``evaluate_lgca_volume`` with and without the mesh: per-ROI Dice
+    within 1e-3; no correlation launch."""
+    import numpy as np
+    import torch
+
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
+    from rpnet_tpu_torch.parallel.mesh import make_mesh
+    from rpnet_tpu_torch.train.lgca import (evaluate_lgca_volume, init_lgca,
+                                            make_lgca_train_step, sharded_lgca_train_step)
+
+    config = Config(lgca_cfg)
+    mesh = make_mesh({"data": 2}, devices=devices)
+    sampler = LGCAVolumeSampler(config["data_dir"], config["train_set_name"], config,
+                                mode="train")
+    rng = np.random.RandomState(0)
+    samples = [sampler.sample(j % len(sampler), rng=rng) for j in range(SHARD_STEPS)]
+    keys = ("volume", "slices", "mask", "downsampled_volume_mask")
+    batches = [tuple(torch.from_numpy(s[k]).cuda() for k in keys) for s in samples]
+    losses, models = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with tf32_off():
+        for tag in ("one device", "sharded"):
+            model, optimizer, state = init_lgca(config, 0, mesh.first)
+            step = (make_lgca_train_step(model, optimizer) if tag == "one device"
+                    else sharded_lgca_train_step(model, optimizer, mesh))
+            reset_launches()
+            t0 = time.perf_counter()
+            losses[tag] = [float(step(state, b)["loss"]) for b in batches]
+            torch.cuda.synchronize()
+            log(f"[shard-lgca] {tag}: {SHARD_STEPS} steps in {time.perf_counter() - t0:.2f}s "
+                f"(the first cold), losses {losses[tag]}")
+            models[tag] = model
+        launches = read_launches()
+        one, sharded = models["one device"], models["sharded"]
+        worst_param = max(float((p - q).detach().abs().max())
+                          for p, q in zip(sharded.parameters(), one.parameters()))
+        ev = LGCAVolumeSampler(config["data_dir"], config["eval_set_name"], config, mode="eval")
+        sample = ev.sample(0)
+        t0 = time.perf_counter()
+        want = evaluate_lgca_volume(sharded, sample, mesh.first)
+        t1 = time.perf_counter()
+        got = evaluate_lgca_volume(sharded, sample, mesh.first, mesh=mesh)
+        t2 = time.perf_counter()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    dice_diff = [abs(got[k] - want[k]) for k in want if want[k] is not None]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["sharded"], losses["one device"]))
+    nones_agree = all((got[k] is None) == (want[k] is None) for k in want)
+    log(f"[shard-lgca] {{data: 2}}: losses within {loss_rel:.3g} relative (rtol 1e-3), "
+        f"parameters within {worst_param:.3g} (atol 5e-3) after {SHARD_STEPS} steps; the "
+        f"eval volume's per-ROI Dice {json.dumps(got)} within "
+        f"{max(dice_diff, default=0.0):.3g} of one device's (1e-3; {t1 - t0:.2f}s one "
+        f"device, {t2 - t1:.2f}s sharded, both f32 TF32 off); correlation launches "
+        f"{launches or 0}; peak memory allocated {peak_gb:.2f} GiB")
+    problems = [] if (loss_rel <= 1e-3 and worst_param <= 5e-3 and nones_agree
+                      and max(dice_diff, default=0.0) <= 1e-3 and not launches) else \
+        ["[shard-lgca] the sharded LGCA step or eval disagrees"]
+    return {"loss_rel": loss_rel, "worst_param": worst_param, "peak_gb": peak_gb}, problems
+
+
+def shard_train(train_cfg, devices):
+    """(c): the example's training block (E=4 episodes of k=12 at 256², U-Net
+    d4, r=5, 4 refinement iterations, registration prior, AdamW; soft masks,
+    as phase 6's bf16 case: with the example's hard masks the loss jumps
+    where a refinement probability crosses 0.5, and the sharded step's f32
+    rounding, its convolutions on half the batch and half the channels,
+    moved the first loss by 8.2e-6 to 9.9e-5 relative in three calls) for
+    ``SHARD_STEPS`` steps of ``sharded_train_step`` over ``{data: 2, model:
+    2}`` against as many one-device steps from the same weights and batches,
+    f32 with TF32 off, within phase 6's card-against-CPU bounds: each loss
+    within 1e-4 relative, and each parameter tensor's gradient of the first
+    step (the same weights on both sides) within 3e-2 (norm of the
+    difference over norm of the gradient; the biases a batch norm cancels
+    left out; a split weight's gradient is its row-slices' in the
+    optimizer, concatenated), or within twice what the same one-device step
+    shows with each batch's episodes in another order (the same function,
+    its sums in another order: the f32 noise of these sums); rows 4 and 7
+    launched 5 times a row and step."""
+    import copy
+    import random as stdlib_random
+
+    import numpy as np
+    import torch
+
+    from rpnet_tpu_torch.cli.train import collate_batch
+    from rpnet_tpu_torch.config import Config
+    from rpnet_tpu_torch.episode.sampler import EpisodeSampler
+    from rpnet_tpu_torch.models.factory import build_rpnet
+    from rpnet_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from rpnet_tpu_torch.train.trainer import (make_optimizer, make_train_step,
+                                               sharded_train_step)
+
+    def gradients(model, optimizer, placement):
+        """Each parameter's gradient by name, from the optimizer's entries
+        (a split weight: its row-slices, in order)."""
+        entries = iter([p for g in optimizer.param_groups for p in g["params"]])
+        out = {}
+        for name, p in model.named_parameters():
+            parts = [next(entries) for _ in range(2 if placement[name] == "model" else 1)]
+            out[name] = torch.cat([torch.zeros_like(q) if q.grad is None else q.grad
+                                   for q in parts]).to("cpu")
+        return out
+
+    config = Config(dict(train_cfg, soft_mask=True))
+    mesh = make_mesh({"data": 2, "model": 2}, devices=devices)
+    E, k = int(config["batch_size"]), int(config["k"])
+    stdlib_random.seed(0)
+    np.random.seed(0)
+    sampler = EpisodeSampler(config["data_dir"], config["train_set_name"], config, mode="train")
+    batches = [tuple(torch.from_numpy(a).cuda() for a in collate_batch(
+        [sampler.sample((s * E + j) % len(sampler)) for j in range(E)], target_k=k))
+        for s in range(SHARD_STEPS)]
+    base = build_rpnet(config, num_iter=config["n_iter_refinement"], seed=0, align=True)
+    placement = shard_params(base, mesh)
+    losses, grads = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    # the witness: each batch's episodes in another order (the loss is their mean)
+    reordered = [tuple(torch.roll(t, E // 2, dims=0) for t in b) for b in batches]
+    with tf32_off():
+        for tag in ("one device", "reordered", "sharded"):
+            model = copy.deepcopy(base).to(mesh.first)
+            optimizer = make_optimizer(model.parameters(), config)
+            step = (sharded_train_step(model, config, optimizer, mesh) if tag == "sharded"
+                    else make_train_step(model, config, optimizer))
+            reset_launches()
+            t0 = time.perf_counter()
+            state = {"step": 0}
+            losses[tag] = []
+            for i, b in enumerate(reordered if tag == "reordered" else batches):
+                losses[tag].append(float(step(state, b)["loss"]))
+                if i == 0:     # the first step's gradients: the same weights everywhere
+                    grads[tag] = gradients(model, optimizer, placement if tag == "sharded"
+                                           else dict.fromkeys(placement, "replicated"))
+            torch.cuda.synchronize()
+            run_launches = read_launches()
+            if tag == "sharded":
+                launches = run_launches
+            log(f"[shard-train] {tag}: {SHARD_STEPS} steps in {time.perf_counter() - t0:.2f}s "
+                f"(the first cold), losses {losses[tag]}, correlation launches {run_launches}")
+            del model, optimizer, step
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    cancelled = bn_cancelled_biases(base)
+    def rel(tag):   # each tensor's gradient difference from one device's, over its norm
+        one = grads["one device"]
+        return {n: float(torch.linalg.vector_norm(grads[tag][n] - one[n])
+                         / torch.linalg.vector_norm(one[n]).clamp_min(1e-12))
+                for n in one if n not in cancelled}
+
+    sharded, witness = rel("sharded"), rel("reordered")
+    over = {n: v for n, v in sharded.items() if v > max(3e-2, 2 * witness[n])}
+    worst = max(sharded.values())
+    log("[shard-train] largest first-step gradient differences, sharded (reordered "
+        "one-device step): " + ", ".join(f"{n} {sharded[n]:.3g} ({witness[n]:.3g})"
+                                          for n in sorted(sharded, key=sharded.get)[-4:])
+        + f"; the reordered step's largest {max(witness.values()):.3g}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["sharded"], losses["one device"]))
+    expected = {"local_correlation": 5 * 2 * SHARD_STEPS,
+                "local_correlation_bwd": 5 * 2 * SHARD_STEPS}
+    log(f"[shard-train] {{data: 2, model: 2}}, E={E} k={k}, soft masks: losses within {loss_rel:.3g} "
+        f"relative (1e-4), worst first-step gradient difference {worst:.3g} of the gradient "
+        f"(3e-2 or twice the reordered step's: {len(over)} tensors over; "
+        f"{sum(v == 'model' for v in placement.values())} weights split over model); launches {launches} (expected {expected}); peak memory allocated "
+        f"{peak_gb:.2f} GiB")
+    problems = [] if (loss_rel <= 1e-4 and not over and launches == expected) else \
+        ["[shard-train] the dp x tp step disagrees with one device"]
+    return ({"loss_rel": loss_rel, "worst": worst, "launches": launches, "peak_gb": peak_gb},
+            problems)
+
+
+def phase_shard(eval_cfg, lgca_cfg, train_cfg):
+    """Phase shard: in-process sharding over several devices (the port of
+    ``__graft_entry__.dryrun_multichip`` at full width): (a) the sharded
+    RP_Net eval, (b) the sharded LGCA step and eval, (c) the dp × tp RP_Net
+    train step, each against its one-device counterpart on the card. Every
+    part runs; the phase fails at its end if any check failed."""
+    devices, what = shard_devices(4)
+    log(f"[shard] devices: {what}: {{data: 2}} over {[str(d) for d in devices[:2]]}, "
+        f"{{data: 2, model: 2}} over {[str(d) for d in devices]}")
+    t0 = time.time()
+    evals, eval_launches, problems = shard_eval(eval_cfg, devices[:2])
+    t1 = time.time()
+    lgca, lgca_problems = shard_lgca(lgca_cfg, devices[:2])
+    t2 = time.time()
+    train, train_problems = shard_train(train_cfg, devices)
+    log(f"[shard] seconds: eval {t1 - t0:.1f}, lgca {t2 - t1:.1f}, train "
+        f"{time.time() - t2:.1f}")
+    problems += lgca_problems + train_problems
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"eval": evals, "eval_launches": eval_launches, "lgca": lgca, "train": train,
+            "devices": what}
+
+
 def gpu_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -3340,6 +3700,8 @@ PHASES = {
                                     run.lgca_data()[1]), ("main",)),
     "preprocess": (lambda run: phase_preprocess(), ()),
     "debug-nans": (lambda run: phase_debug_nans(run.eval_data()["cfg"]), ()),
+    "shard": (lambda run: phase_shard(run.eval_data()["cfg"], run.lgca_data()[1],
+                                      run.train_data()[1]), ()),
 }
 
 
@@ -3401,11 +3763,14 @@ def kernel_entries(results):
                  **ran("lgca-eval", lambda: {"lgca-eval": {}}),   # it requires none
                  **(get("multiprocess") or {}),
                  **ran("mesh", lambda: {"mesh": results["mesh"]}),
-                 **ran("debug-nans", lambda: {"debug-nans": results["debug-nans"]})}
+                 **ran("debug-nans", lambda: {"debug-nans": results["debug-nans"]}),
+                 **ran("shard", lambda: results["shard"]["eval_launches"])}
     train_runs = {**ran("training", lambda: {"train": results["training"]["launches"]}),
                   **ran("train-deform", lambda: {"train-deform": results["train-deform"]}),
                   **{f"train-{k}": v for k, v in (get("train-breadth") or {}).items()},
-                  **ran("lgca-train", lambda: {"lgca-train": {}})}   # it requires none
+                  **ran("lgca-train", lambda: {"lgca-train": {}}),   # it requires none
+                  **ran("shard", lambda: {"shard-train": results["shard"]["train"]["launches"],
+                                          "shard-lgca": {}})}
     opt_in_runs = list((get("eval-switches") or {}).values()) + \
         list((get("train-switches") or {}).values())
 

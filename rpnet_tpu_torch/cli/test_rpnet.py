@@ -24,10 +24,13 @@ Several processes (``multihost: true`` with ``coordinator_address``,
 or on several) form a gloo group (``parallel/mesh.py``): each evaluates a
 strided shard of the episodes (or of the eval_3d volumes), prints their
 lines, and every process prints the same aggregate of the merged records.
-``mesh_shape`` is resolved per process as the JAX CLI resolves it; a mesh
-of one device runs, a shape needing more devices than the process has
-raises the JAX message, and a mesh of several devices raises (in-process
-sharding is ROADMAP.md queue 1 item 8's open remainder). ``debug_nans``
+``mesh_shape`` is resolved per process as the JAX CLI resolves it (a shape
+needing more devices than the process has raises the JAX message); where
+its data axis is above 1, each episode's query slices are split over the
+mesh's data devices (``EpisodeRunner(mesh=...)``, one host thread
+enqueueing every device's shard). A single process on several cards takes
+them all unless ``mesh_shape`` says otherwise, as the JAX CLI takes every
+chip. ``debug_nans``
 turns on ``utils/profiling.enable_nan_debugging`` for the model: the first
 NaN raises ``FloatingPointError`` (or anomaly detection's error in a
 backward) inside the episode, which is then logged, counted as failed and
@@ -36,7 +39,8 @@ skipped, as the JAX CLI counts a ``jax_debug_nans`` error.
 ``net: LGCANet_V3`` runs :func:`eval_lgca` instead, the JAX CLI's
 whole-volume eval (``rpnet_tpu/cli/test_rpnet.py:326-382``): per-ROI Dice of
 every eval volume, one line a volume, the average block and
-``results_eval.json``, with its mesh resolved the same way.
+``results_eval.json``, with its mesh resolved the same way (each chunk of
+slices split over the data devices).
 
 It runs on the GPU (``--platform gpu``, the default) and raises when there
 is none; ``--platform cpu`` runs on the CPU with the kernels' plain versions.
@@ -124,14 +128,21 @@ def load_checkpoint_into(model, config: Config) -> None:
     load_into(model, load_torch_checkpoint(ckpt)["state_dict"])
 
 
+def sharding_mesh(mesh):
+    """The resolved mesh where its data axis splits work, else None (the
+    one-device path; a ``model`` axis alone adds nothing to eval)."""
+    return mesh if mesh is not None and mesh.shape["data"] > 1 else None
+
+
 def build_runner(config: Config, device, seed: int = 0) -> EpisodeRunner:
     """The runner of the model (seeded init, or the configured ``.pth``)."""
     model = build_rpnet(config, num_iter=config["n_iter_refinement"], seed=seed)
     load_checkpoint_into(model, config)
     # mesh_shape (or several local devices) resolved as the JAX CLI does
-    # (rpnet_tpu/cli/test_rpnet.py:76-83); episodes shard across processes
-    resolve_cli_mesh(config.get("mesh_shape"), device)
-    runner = EpisodeRunner(model, config, device)
+    # (rpnet_tpu/cli/test_rpnet.py:76-83); the query slices shard over its
+    # data axis, episodes across processes
+    mesh = sharding_mesh(resolve_cli_mesh(config.get("mesh_shape"), device))
+    runner = EpisodeRunner(model, config, device, mesh=mesh)
     dt = config.get("compute_dtype") or "bfloat16 (auto)"
     print(f"[network compute dtype {dt}; registration/metrics f32 — "
           f"set compute_dtype to override]")
@@ -283,7 +294,7 @@ def evaluate_3d(runner: EpisodeRunner, sampler: EpisodeSampler, config: Config):
     supports, so its shards pair others). A volume's failure is logged and
     counted, and the pass goes on."""
     eval_classes = config["eval_classes"]
-    vrunner = Volume3DRunner(runner, window=int(config.get("slice_bucket", 32)),
+    vrunner = Volume3DRunner(runner, window=runner.bucket,
                              overlap=int(config.get("overlap_3d", 8)))
     vsampler = Volume3DSampler(sampler)
     n_vols = len(vsampler)
@@ -352,7 +363,9 @@ def main(argv=None):
         print(f"[length of eval loader {len(sampler)}]")
         runner = build_runner(config, device, seed)
         if config.get("debug_nans"):
-            enable_nan_debugging(True, runner.model)
+            models = runner.models   # one model a distinct device of the mesh
+            enable_nan_debugging(True, models[0] if len(models) == 1
+                                 else torch.nn.ModuleList(models))
         n_runs = args.n_runs or config.get("n_runs", 1)
         return run_eval_protocol(runner, sampler, config, out_dir, n_runs)
     finally:
@@ -374,7 +387,7 @@ def eval_lgca(config: Config, device, out_dir: str, seed: int = 0) -> Dict:
     print(f"[length of LGCA eval loader {len(sampler)}]")
     model = build_lgcanet(config, seed=seed, device=device)
     load_checkpoint_into(model, config)
-    resolve_cli_mesh(config.get("mesh_shape"), device, prefix="LGCA ")
+    mesh = sharding_mesh(resolve_cli_mesh(config.get("mesh_shape"), device, prefix="LGCA "))
     if config.get("debug_nans"):
         enable_nan_debugging(True, model)
 
@@ -385,7 +398,7 @@ def eval_lgca(config: Config, device, out_dir: str, seed: int = 0) -> Dict:
     for j in range(len(sampler)):
         try:
             s = sampler.sample(j)
-            dices = evaluate_lgca_volume(model, s, device)
+            dices = evaluate_lgca_volume(model, s, device, mesh=mesh)
         except Exception:
             failures += 1
             print(f"{j} VOLUME FAILED — skipping:\n{traceback.format_exc()}")

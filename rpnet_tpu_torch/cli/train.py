@@ -33,8 +33,9 @@ demons blur keeps f32 (``registration/gaussian.no_tf32``).
 ``np.random.RandomState(seed)``), the same ``epoch N loss X (Y
 volumes/s)`` line and ``.pth`` checkpoints with the upstream LGCA names; its
 ``mesh_shape`` is resolved with the slice batch as divisor, as the JAX CLI
-resolves it (a mesh of one device runs; one of several raises: in-process
-sharding is ROADMAP.md queue 1 item 8's open remainder).
+resolves it; where its data axis is above 1 the step is
+``train/lgca.sharded_lgca_train_step`` (the slice batch split over the data
+devices, batch norm statistics global).
 
 With ``multihost`` (or torchrun's variables) the process joins the gloo
 group first (``parallel/mesh.py``); RP_Net training then runs per process,
@@ -55,7 +56,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from rpnet_tpu_torch.cli.test_rpnet import check_net, resolve_device, start_process
+from rpnet_tpu_torch.cli.test_rpnet import (check_net, resolve_device, sharding_mesh,
+                                            start_process)
 from rpnet_tpu_torch.config import Config, load_yaml
 from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
 from rpnet_tpu_torch.episode.sampler import EpisodeSampler
@@ -64,7 +66,8 @@ from rpnet_tpu_torch.parallel.mesh import resolve_cli_mesh
 from rpnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from rpnet_tpu_torch.train.convert import (convert_torchvision_vgg16, load_into,
                                            load_torch_checkpoint)
-from rpnet_tpu_torch.train.lgca import init_lgca, make_lgca_train_step
+from rpnet_tpu_torch.train.lgca import (init_lgca, make_lgca_train_step,
+                                        sharded_lgca_train_step)
 from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
 from rpnet_tpu_torch.utils.logger import Logger
 from rpnet_tpu_torch.utils.profiling import enable_nan_debugging
@@ -278,13 +281,15 @@ def train_lgca(config: Config, args, device, out_dir: str, seed: int) -> Dict:
         start_epoch = restore_checkpoint(config["ckpt"], model, optimizer,
                                          steps_per_epoch)
         state["step"] = start_epoch * steps_per_epoch
-    # the slice batch shards over the mesh's data axis in the JAX CLI
-    # (rpnet_tpu/cli/train.py:113-123); here a mesh of one device runs
-    resolve_cli_mesh(config.get("mesh_shape"), device,
-                        batch_divisor=int(config.get("lgca_slices", 8)), prefix="LGCA ")
+    # the slice batch shards over the mesh's data axis, as in the JAX CLI
+    # (rpnet_tpu/cli/train.py:113-123)
+    mesh = sharding_mesh(resolve_cli_mesh(
+        config.get("mesh_shape"), device,
+        batch_divisor=int(config.get("lgca_slices", 8)), prefix="LGCA "))
     if config.get("debug_nans"):
         enable_nan_debugging(True, model)
-    step = make_lgca_train_step(model, optimizer)
+    step = (make_lgca_train_step(model, optimizer) if mesh is None
+            else sharded_lgca_train_step(model, optimizer, mesh))
     rng = np.random.RandomState(seed)
 
     def to_device(a):

@@ -117,10 +117,11 @@ _DEFAULTS: Dict[str, Any] = {
     "multishot_fusion": False,  # register every shot, fuse over shots
     "eval_3d": False,           # whole-volume sliding-window eval
     "overlap_3d": 8,            # z-overlap between eval_3d windows
-    "slice_bucket": 32,         # eval_3d window (the JAX runner's bucket)
+    "slice_bucket": 32,         # eval_3d window (the JAX runner's bucket,
+                                # rounded up to a sharded runner's data axis)
     "mesh_shape": None,         # e.g. {"data": 2}: resolved per process
-                                # (parallel/mesh.resolve_local_mesh); a mesh
-                                # of one device a process runs
+                                # (parallel/mesh.resolve_local_mesh); a data
+                                # axis above 1 shards in process
     # multihost, coordinator_address, num_processes, process_id (the process
     # group, parallel/mesh.maybe_initialize_distributed) and debug_nans
     # (utils/profiling.enable_nan_debugging) are read with .get, as the JAX

@@ -4,9 +4,12 @@ The counterpart of ``rpnet_tpu/episode/volume3d.py``. Every query slice gets
 the support slice at the nearest normalized z-position, and the volume runs
 in overlapping z-windows of the episode function:
 
-  * the window is ``slice_bucket`` slices (the JAX runner's bucket), the
-    overlap min(``overlap_3d``, window // 2), and the last window is clamped
-    inside the volume;
+  * the window is the runner's ``bucket`` (``slice_bucket``, rounded up
+    to the data axis of a sharded runner, as the JAX runner rounds its
+    bucket), the overlap min(``overlap_3d``, window // 2), and the last
+    window is clamped inside the volume;
+  * a sharded runner (``EpisodeRunner(mesh=...)``) splits each window's
+    slices over its data devices;
   * window i + 1 is queued before window i is settled;
   * with a device volume cache the windows go as :class:`EpisodeSpec` row
     indices into volumes held on the device;

@@ -29,6 +29,18 @@ statistics once, as it enters the step: each batch norm's first update of
 the step starts from the rounded statistics (``cast_stats``, set by
 :func:`cast_statistics` before each step), later ones in f32.
 
+Sharded batches (``train/lgca.sharded_lgca_train_step``): a
+:class:`Shards` is one batch split over devices along its first axis, a
+tensor per device. The blocks below take one in place of a tensor and run
+the shards in lockstep on one host thread, as an SPMD program would: each
+op is enqueued for every shard in turn. Parameters stay once, on their
+master device; a shard uses ``p.to(shard.device)``, a differentiable copy
+(no copy on the master's device), so the shards' gradients sum onto the
+master and one optimizer step updates it. :class:`BatchNorm2d` in training
+mode takes its statistics over every shard (:meth:`BatchNorm2d.
+_forward_shards`). Only the LGCA U-Net takes this path; a tensor input runs
+as before.
+
 Initialization: torch's own defaults (Conv2d kaiming_uniform(a=√5), bias
 U(±1/√fan_in); BatchNorm2d ones/zeros, running stats 0/1), or kaiming-normal
 weights where a conv asks for them (the VGG encoder's), the same
@@ -38,12 +50,56 @@ distributions as the JAX package's, drawn from an explicit
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
 from torch import nn
 
 from rpnet_tpu_torch.ops.sampling import upsample_nearest2x
+
+
+class Shards(list):
+    """One batch split over devices along its first axis: a tensor per
+    shard, each on its own device (see the module doc)."""
+
+
+def on_shards(fn, *args):
+    """``fn(*args)``; where an argument is a :class:`Shards`, ``fn`` once
+    per shard, with each Shards argument's shard and the other arguments
+    as they are → Shards."""
+    n = next((len(a) for a in args if isinstance(a, Shards)), None)
+    if n is None:
+        return fn(*args)
+    return Shards(fn(*(a[i] if isinstance(a, Shards) else a for a in args))
+                  for i in range(n))
+
+
+def replica_call(module: nn.Module, x, *args):
+    """``module(x, *args)``; for Shards ``x``, per shard, with the module's
+    parameters and buffers copied to the shard's device
+    (``torch.func.functional_call``; on the master's device no copy)."""
+
+    def one(xi, *a):
+        state = {n: t.to(xi.device) for n, t in itertools.chain(
+            module.named_parameters(), module.named_buffers())}
+        return torch.func.functional_call(module, state, (xi, *a))
+
+    return on_shards(one, x, *args) if isinstance(x, Shards) else module(x, *args)
+
+
+class ReLU(nn.ReLU):
+    """``nn.ReLU`` that also takes Shards."""
+
+    def forward(self, x):
+        return on_shards(super().forward, x)
+
+
+class Sigmoid(nn.Sigmoid):
+    """``nn.Sigmoid`` that also takes Shards."""
+
+    def forward(self, x):
+        return on_shards(super().forward, x)
 
 
 class Conv2d(nn.Conv2d):
@@ -54,11 +110,33 @@ class Conv2d(nn.Conv2d):
     differs from it by one ulp on about a quarter of bf16 outputs).
     """
 
+    # tensor parallelism (train/trainer.sharded_train_step): [(device,
+    # weight rows)] per slice of the output channels, or None
+    tp = None
+
     def forward(self, x):
-        if x.dtype.itemsize < 4 and self.bias is not None:
-            y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight, None)
-            return y.permute(0, 2, 3, 1) + self.bias.to(x.dtype)
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if isinstance(x, Shards):
+            return replica_call(self, x)
+        if self.tp is not None:
+            return self._forward_tp(x)
+        return self._conv(x, self.weight, self.bias)
+
+    def _conv(self, x, weight, bias):
+        if x.dtype.itemsize < 4 and bias is not None:
+            y = self._conv_forward(x.permute(0, 3, 1, 2), weight, None)
+            return y.permute(0, 2, 3, 1) + bias.to(x.dtype)
+        return self._conv_forward(x.permute(0, 3, 1, 2), weight, bias).permute(0, 2, 3, 1)
+
+    def _forward_tp(self, x):
+        """Each slice of the output channels on its device of ``tp`` (the
+        input copied there, the bias's rows with it), concatenated on the
+        input's device."""
+        n = len(self.tp)
+        biases = self.bias.chunk(n) if self.bias is not None else [None] * n
+        return torch.cat([
+            self._conv(x.to(d, non_blocking=True), w,
+                       None if b is None else b.to(d)).to(x.device, non_blocking=True)
+            for (d, w), b in zip(self.tp, biases)], dim=-1)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -84,6 +162,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     cast_stats = None   # dtype of the step's cast, until the first update (cast_statistics)
 
     def forward(self, x):
+        if isinstance(x, Shards):
+            return self._forward_shards(x) if self.training else replica_call(self, x)
         if not self.training:
             if x.dtype.itemsize < 4:
                 # below f32, flax's order and roundings: each op rounds to
@@ -105,6 +185,34 @@ class BatchNorm2d(nn.BatchNorm2d):
         shift = self.bias - mean * mul
         y = xg * mul[:, None].to(x.dtype) + shift[:, None].to(x.dtype)
         return y.reshape(N, H, W, C)
+
+    def _forward_shards(self, xs: Shards) -> Shards:
+        """Training mode over Shards of one episode: the batch statistics of
+        all shards' samples together, as the one-device forward takes them.
+        Each shard's f32 channel sums go to the master device; the mean comes
+        back, each shard's sum of squared deviations from it goes there too,
+        and the variance (biased) comes back with the scale and shift.
+        Autograd differentiates the same chain, so the backward reduces the
+        two gradient sums across the shards the same way. The running
+        statistics update once, from the global statistics."""
+        if self.groups != 1:
+            raise ValueError("sharded batch norm takes one episode (groups 1), "
+                             f"got {self.groups}")
+        home = self.weight.device
+        stat_dtype = torch.promote_types(xs[0].dtype, torch.float32)
+        n = sum(x.numel() // x.shape[-1] for x in xs)
+        total = lambda parts: torch.stack([p.to(home) for p in parts]).sum(0)
+        mean = total([x.to(stat_dtype).sum((0, 1, 2)) for x in xs]) / n
+        var = total([(x.to(stat_dtype) - mean.to(x.device)).square().sum((0, 1, 2))
+                     for x in xs]) / n
+        with torch.no_grad():
+            cast, self.cast_stats = self.cast_stats, None
+            self._update_running(self.running_mean, mean, cast)
+            self._update_running(self.running_var, var, cast)
+            self.num_batches_tracked += 1
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * mul
+        return Shards(x * mul.to(x.device, x.dtype) + shift.to(x.device, x.dtype) for x in xs)
 
     def _update_running(self, running, batch, cast=None):
         """``running`` ← (1 − momentum)·running + momentum·batch. With
@@ -132,6 +240,8 @@ class InstanceNorm2d(nn.Module):
         self.num_features, self.eps = num_features, eps
 
     def forward(self, x):
+        if isinstance(x, Shards):
+            return on_shards(self.forward, x)
         var, mean = torch.var_mean(x, dim=(1, 2), keepdim=True, correction=0)
         return (x - mean) * torch.rsqrt(var + self.eps)
 
@@ -146,6 +256,8 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(8, num_features, eps=eps)
 
     def forward(self, x):
+        if isinstance(x, Shards):
+            return replica_call(self, x)
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
@@ -174,7 +286,7 @@ class UpsampleNearest2x(nn.Module):
     """``nn.Upsample(scale_factor=2)`` on (N, H, W, C) tensors."""
 
     def forward(self, x):
-        return upsample_nearest2x(x)
+        return on_shards(upsample_nearest2x, x)
 
 
 def conv_bn_relu(cin: int, cout: int, k: int = 3, norm: str = "BatchNorm2d") -> list:
@@ -182,7 +294,7 @@ def conv_bn_relu(cin: int, cout: int, k: int = 3, norm: str = "BatchNorm2d") -> 
     pieces."""
     if norm not in NORMS:
         raise NotImplementedError(f"unet_normalize_type {norm!r}: {', '.join(NORMS)}")
-    return [Conv2d(cin, cout, k, padding=k // 2), NORMS[norm](cout), nn.ReLU()]
+    return [Conv2d(cin, cout, k, padding=k // 2), NORMS[norm](cout), ReLU()]
 
 
 class ConvBlock(nn.Module):
@@ -219,10 +331,11 @@ class AttentionBlock(nn.Module):
         super().__init__()
         self.W_g = nn.Sequential(*conv_bn_relu(f_g, f_int, 1, norm)[:2])
         self.W_x = nn.Sequential(*conv_bn_relu(f_l, f_int, 1, norm)[:2])
-        self.psi = nn.Sequential(*conv_bn_relu(f_int, 1, 1, norm)[:2], nn.Sigmoid())
+        self.psi = nn.Sequential(*conv_bn_relu(f_int, 1, 1, norm)[:2], Sigmoid())
 
     def forward(self, g, x):
-        return x * self.psi(torch.relu(self.W_g(g) + self.W_x(x)))
+        gate = on_shards(lambda a, b: torch.relu(a + b), self.W_g(g), self.W_x(x))
+        return on_shards(torch.mul, x, self.psi(gate))
 
 
 @torch.no_grad()

@@ -23,6 +23,14 @@ Every 3D convolution has a bias, as flax's ``nn.Conv`` has by default; the
 attention embeddings and the fuse conv have none. The slice attention is
 plain torch (softmax over a few hundred depths), as it is plain XLA in the
 JAX package; the path launches no hand-written kernel.
+
+Sharded training (``train/lgca.sharded_lgca_train_step``): ``forward``
+also takes the slice batch as ``models/blocks.Shards``. The 3D context net
+then runs once per distinct device of the shards, with its parameters
+copied there (instance norms: nothing crosses devices), and the fused U-Net
+runs the shards in lockstep, its batch norms taking their statistics over
+all of them; ``seg_2d`` comes back as Shards, ``dsv`` from the first
+shard's device.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from rpnet_tpu_torch.models.blocks import (NORMS, AttentionBlock, Conv2d,
-                                           ConvBlock, UpConv)
+                                           ConvBlock, ReLU, Shards, UpConv,
+                                           on_shards, replica_call)
 from rpnet_tpu_torch.models.losses import dice_loss_per_class
 from rpnet_tpu_torch.ops.sampling import max_pool2d
 
@@ -87,9 +96,11 @@ def adaptive_max_pool3d_hw(x, out: int):
 
 
 class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` on (N, D, H, W, C) tensors."""
+    """``nn.Conv3d`` on (N, D, H, W, C) tensors (or Shards of them)."""
 
     def forward(self, x):
+        if isinstance(x, Shards):
+            return replica_call(self, x)
         return _ndhwc(super().forward(_ncdhw(x)))
 
 
@@ -101,7 +112,7 @@ class _Fn(nn.Module):
         self.fn, self.args = fn, args
 
     def forward(self, x):
-        return self.fn(x, *self.args)
+        return on_shards(lambda a: self.fn(a, *self.args), x)
 
 
 class ResBlock3d(nn.Module):
@@ -176,10 +187,17 @@ class AttentionLayer(nn.Module):
                                                _Fn(adaptive_max_pool3d_hw, num_embed))
 
     def forward(self, feat_2d, feat_3d):
-        B, D = feat_2d.shape[0], feat_3d.shape[1]
-        sig2 = self.global_pooling_2D(feat_2d).reshape(B, -1)          # (B, E·E·F)
-        sig3 = self.global_pooling_3D(feat_3d)[0]                       # (D, E, E, F)
-        sig3 = sig3.permute(3, 1, 2, 0).reshape(-1, D)                  # (F·E·E, D)
+        out = on_shards(self._attend, self.global_pooling_2D(feat_2d),
+                        self.global_pooling_3D(feat_3d), feat_3d)
+        if isinstance(out, Shards):
+            return Shards(f for f, _ in out), Shards(a for _, a in out)
+        return out
+
+    @staticmethod
+    def _attend(emb_2d, emb_3d, feat_3d):
+        B, D = emb_2d.shape[0], feat_3d.shape[1]
+        sig2 = emb_2d.reshape(B, -1)                                    # (B, E·E·F)
+        sig3 = emb_3d[0].permute(3, 1, 2, 0).reshape(-1, D)             # (F·E·E, D)
         att = torch.softmax(sig2 @ sig3 / math.sqrt(sig2.shape[-1]), dim=1)
         fused = att @ feat_3d[0].reshape(D, -1)
         return fused.reshape(B, *feat_3d.shape[2:]), att
@@ -197,13 +215,17 @@ class MultiHeadAttentionLayer(nn.Module):
         for i in range(num_head):
             self.add_module(f"att_layer_{i}", AttentionLayer(c2, c3, num_feat, num_embed))
         self.conv = nn.Sequential(Conv2d(num_head * c3, c3, 1, bias=False),
-                                  NORMS[norm](c3), nn.ReLU())
+                                  NORMS[norm](c3), ReLU())
 
     def forward(self, feat_2d, feat_3d):
         heads = [getattr(self, f"att_layer_{i}")(feat_2d, feat_3d)
                  for i in range(self.num_head)]
-        x = self.conv(torch.cat([f for f, _ in heads], dim=-1))
-        return x, torch.stack([a for _, a in heads], dim=-1)
+        x = self.conv(on_shards(_cat, *[f for f, _ in heads]))
+        return x, on_shards(lambda *a: torch.stack(a, dim=-1), *[a for _, a in heads])
+
+
+def _cat(*parts):
+    return torch.cat(parts, dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -246,9 +268,9 @@ class FusedUNet(nn.Module):
         skips = [self.Conv1(x)]
         cur = skips[0]
         for lvl in range(4):
-            cur = max_pool2d(cur, 2, 2)
+            cur = on_shards(max_pool2d, cur, 2, 2)
             att_out, _ = getattr(self, f"self_attention{lvl + 1}")(cur, p[lvl])
-            cur = getattr(self, f"Conv{lvl + 2}")(torch.cat([cur, att_out], dim=-1))
+            cur = getattr(self, f"Conv{lvl + 2}")(on_shards(_cat, cur, att_out))
             skips.append(cur)
 
         d = skips[4]
@@ -260,9 +282,9 @@ class FusedUNet(nn.Module):
             parts = [skip, d]
             if lvl == 2 and not self.attention_gates:
                 parts.append(features["glob_feat"])
-            d = getattr(self, f"Up_conv{lvl}")(torch.cat(parts, dim=-1))
+            d = getattr(self, f"Up_conv{lvl}")(on_shards(_cat, *parts))
         if self.attention_gates:
-            d = torch.cat([d, features["glob_feat"]], dim=-1)
+            d = on_shards(_cat, d, features["glob_feat"])
         return {"seg_2d": self.Conv_1x1(d)}
 
 
@@ -285,13 +307,36 @@ class LGCANetV3(nn.Module):
         self.unet = FusedUNet(output_ch, norm, feature_scale, attention_gates)
 
     def forward(self, volume, slices) -> Dict[str, torch.Tensor]:
+        if isinstance(slices, Shards):
+            return self._forward_shards(volume, slices)
         feats = self.context_net(volume)
-        B, H, W, _ = slices.shape
-        # AdaptiveAvgPool3d(1) of d4, broadcast to the slices' resolution (lgca:605-609)
-        glob = feats["d4"].mean(dim=(1, 2, 3))                         # (1, 64)
-        feats["glob_feat"] = glob[:, None, None, :].expand(B, H, W, glob.shape[-1])
+        feats["glob_feat"] = self._glob_feat(feats["d4"], slices)
         out = self.unet(slices, feats)
         out["dsv"] = feats["dsv"]
+        return out
+
+    @staticmethod
+    def _glob_feat(d4, slices):
+        """AdaptiveAvgPool3d(1) of d4, broadcast to the slices' resolution
+        (lgca:605-609)."""
+        B, H, W, _ = slices.shape
+        glob = d4.mean(dim=(1, 2, 3))                                   # (1, 64)
+        return glob[:, None, None, :].expand(B, H, W, glob.shape[-1])
+
+    def _forward_shards(self, volume, slices: Shards):
+        """The forward over a sharded slice batch (module doc): the context
+        net once per distinct device, the U-Net in lockstep."""
+        by_device = {}
+        for s in slices:
+            if s.device not in by_device:
+                by_device[s.device] = replica_call(
+                    self.context_net, Shards([volume.to(s.device, non_blocking=True)]))[0]
+        feats = {k: Shards(by_device[s.device][k] for s in slices)
+                 for k in ("d1", "d2", "d3", "d4")}
+        feats["glob_feat"] = Shards(self._glob_feat(by_device[s.device]["d4"], s)
+                                    for s in slices)
+        out = self.unet(slices, feats)
+        out["dsv"] = by_device[slices[0].device]["dsv"]
         return out
 
     @staticmethod

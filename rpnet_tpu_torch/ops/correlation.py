@@ -373,6 +373,15 @@ FORWARDS = {"select": local_correlation, "band": local_correlation_band,
             "csub": _csub_forward}
 
 
+def forward_launches() -> int:
+    """The launches counted so far by every forward wrapper (select, band,
+    pdot, packed, csub): read around a piece of work, the forward kernel
+    launches it made."""
+    return sum(w.launches for w in (local_correlation, local_correlation_band,
+                                    local_correlation_pdot, local_correlation_packed,
+                                    local_correlation_csub))
+
+
 @functools.lru_cache(maxsize=None)
 def _warn_pdot_ignored(reason: str) -> None:
     warnings.warn(f"RPNET_ROT_EXTRACT=pdot requested but ignored: {reason}; "

@@ -114,6 +114,22 @@
 
 namespace {
 
+// Dynamic shared memory above 48 KB needs an opt-in, which acts on the
+// current device only: each kernel instance keeps the size allowed so far
+// per device, and a launch on another card opts in there first.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t allow_smem(const void* kernel, int smem, int* allowed) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) allowed[dev] = smem;
+  return e;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: TMA + wgmma
 // ---------------------------------------------------------------------------
@@ -818,13 +834,9 @@ typedef void (*TcKernel)(CUtensorMap, CUtensorMap, __nv_bfloat16*, Args);
 // the kernel instance for a plan, its dynamic shared memory allowed
 template <int REG_NK>
 cudaError_t tc_kernel(const Plan& p, TcKernel* fn) {
-  static int allowed = 0;   // above 48 KB needs the opt-in, once per size
+  static int allowed[MAX_DEVICES] = {};
   *fn = local_corr_tc_kernel<REG_NK>;
-  if (p.smem <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      local_corr_tc_kernel<REG_NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-  if (e == cudaSuccess) allowed = p.smem;
-  return e;
+  return allow_smem(reinterpret_cast<const void*>(*fn), p.smem, allowed);
 }
 
 cudaError_t select_kernel(const Plan& p, TcKernel* fn) {
@@ -858,13 +870,9 @@ typedef void (*F32Kernel)(CUtensorMap, CUtensorMap, float*, Args);
 
 template <int NK>
 cudaError_t f32_kernel(const F32Plan& p, F32Kernel* fn) {
-  static int allowed = 0;   // above 48 KB needs the opt-in, once per size
+  static int allowed[MAX_DEVICES] = {};
   *fn = local_corr_f32_kernel<NK>;
-  if (p.smem <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      local_corr_f32_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-  if (e == cudaSuccess) allowed = p.smem;
-  return e;
+  return allow_smem(reinterpret_cast<const void*>(*fn), p.smem, allowed);
 }
 
 cudaError_t select_f32_kernel(const F32Plan& p, F32Kernel* fn) {

@@ -94,6 +94,22 @@
 
 namespace {
 
+// Dynamic shared memory above 48 KB needs an opt-in, which acts on the
+// current device only: each kernel instance keeps the size allowed so far
+// per device, and a launch on another card opts in there first.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t allow_smem(const void* kernel, int smem, int* allowed) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) allowed[dev] = smem;
+  return e;
+}
+
 enum Mode { BAND = 0, PACK = 1, PDOT = 2 };
 
 constexpr int QR = 4;                  // query rows per block, one per warp of a warpgroup
@@ -863,22 +879,18 @@ bool encode_map(CUtensorMap* map, const void* ptr, bool f32, int B, int H, int W
 template <typename T>
 using Kernel = void (*)(CUtensorMap, CUtensorMap, T*, Args);
 
-// a kernel instance with its dynamic shared memory allowed (above 48 KB
-// needs the opt-in, once per size)
+// a kernel instance with its dynamic shared memory allowed on the current
+// device (``allowed``: the instance's sizes per device)
 template <typename T>
 cudaError_t allow(Kernel<T> fn, int smem, int* allowed) {
-  if (smem <= *allowed) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess) *allowed = smem;
-  return e;
+  return allow_smem(reinterpret_cast<const void*>(fn), smem, allowed);
 }
 
 template <int NKF, int MODE>
 cudaError_t bf16_instance(int smem, Kernel<__nv_bfloat16>* fn) {
-  static int allowed = 0;
+  static int allowed[MAX_DEVICES] = {};
   *fn = band_bf16_kernel<NKF, MODE>;
-  return allow(*fn, smem, &allowed);
+  return allow(*fn, smem, allowed);
 }
 
 template <int MODE>
@@ -895,9 +907,9 @@ cudaError_t select_bf16(const Plan& p, Kernel<__nv_bfloat16>* fn) {
 
 template <int NK, int MODE>
 cudaError_t f32_instance(int smem, Kernel<float>* fn) {
-  static int allowed = 0;
+  static int allowed[MAX_DEVICES] = {};
   *fn = band_f32_kernel<NK, MODE>;
-  return allow(*fn, smem, &allowed);
+  return allow(*fn, smem, allowed);
 }
 
 template <int MODE>

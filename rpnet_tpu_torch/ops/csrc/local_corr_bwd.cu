@@ -72,6 +72,22 @@
 
 namespace {
 
+// Dynamic shared memory above 48 KB needs an opt-in, which acts on the
+// current device only: each kernel instance keeps the size allowed so far
+// per device, and a launch on another card opts in there first.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t allow_smem(const void* kernel, int smem, int* allowed) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) allowed[dev] = smem;
+  return e;
+}
+
 constexpr int TY = 4;              // output rows per block
 constexpr int NQT = 4;             // query tiles of 8 per block
 constexpr int XT = 8 * NQT;        // query columns per block
@@ -475,13 +491,9 @@ cudaError_t launch(const void* g, int g_pitch, const void* fm1, const void* fm2,
                    float scale, cudaStream_t stream) {
   constexpr int smem = Geometry<T, R>::SMEM;
   auto kernel = local_corr_bwd_kernel<T, R>;
-  static bool configured = false;   // above 48 KB needs the opt-in, once
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static int allowed[MAX_DEVICES] = {};
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem, allowed);
+  if (e != cudaSuccess) return e;
   const int nxt = (W + XT - 1) / XT;
   const int ncb = (C + CB - 1) / CB;
   const dim3 grid(nxt * ncb, (H + TY - 1) / TY, 2 * B);

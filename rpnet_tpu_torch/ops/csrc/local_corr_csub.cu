@@ -98,6 +98,22 @@
 
 namespace {
 
+// Dynamic shared memory above 48 KB needs an opt-in, which acts on the
+// current device only: each kernel instance keeps the size allowed so far
+// per device, and a launch on another card opts in there first.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t allow_smem(const void* kernel, int smem, int* allowed) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) allowed[dev] = smem;
+  return e;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: TMA + wgmma on MN-major operands
 // ---------------------------------------------------------------------------
@@ -483,13 +499,9 @@ typedef void (*TcKernel)(CUtensorMap, CUtensorMap, __nv_bfloat16*, Args);
 // the kernel instance for a plan, its dynamic shared memory allowed
 template <bool RES, bool TMA>
 cudaError_t tc_kernel(const Plan& p, TcKernel* fn) {
-  static int allowed = 0;   // above 48 KB needs the opt-in, once per size
+  static int allowed[MAX_DEVICES] = {};
   *fn = csub_tc_kernel<RES, TMA>;
-  if (p.smem <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      csub_tc_kernel<RES, TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-  if (e == cudaSuccess) allowed = p.smem;
-  return e;
+  return allow_smem(reinterpret_cast<const void*>(*fn), p.smem, allowed);
 }
 
 cudaError_t select_kernel(const Plan& p, bool tma, TcKernel* fn) {
@@ -715,16 +727,12 @@ typedef void (*F32Kernel)(CUtensorMap, CUtensorMap, float*, FArgs);
 // the kernel instance for radius R, its dynamic shared memory allowed
 template <int R, bool TMA>
 cudaError_t f32_kernel(F32Kernel* fn, int* nstage, int* smem, int* threads) {
-  static int allowed = 0;   // above 48 KB needs the opt-in, once
+  static int allowed[MAX_DEVICES] = {};
   *fn = csub_f32_kernel<R, TMA>;
   *nstage = f32_stages<R>();
   *smem = f32_smem<R>(*nstage);
   *threads = FShape<R>::NT;
-  if (*smem <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      csub_f32_kernel<R, TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-  if (e == cudaSuccess) allowed = *smem;
-  return e;
+  return allow_smem(reinterpret_cast<const void*>(*fn), *smem, allowed);
 }
 
 cudaError_t select_f32_kernel(int r, bool tma, F32Kernel* fn, int* nstage, int* smem,

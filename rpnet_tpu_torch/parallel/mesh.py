@@ -1,6 +1,6 @@
-"""Multi-process runtime and the per-process mesh resolver, on torch.distributed.
+"""Multi-process runtime, the per-process mesh and in-process sharding.
 
-The counterpart of ``rpnet_tpu/parallel/mesh.py:30-174``:
+The counterpart of ``rpnet_tpu/parallel/mesh.py``:
 
   * :func:`maybe_initialize_distributed` joins a process group when the YAML
     asks for it (``multihost: true``) or when launched by torchrun
@@ -11,21 +11,35 @@ The counterpart of ``rpnet_tpu/parallel/mesh.py:30-174``:
     eval CLIs' strided shards on every process;
   * :func:`make_mesh` / :func:`resolve_local_mesh` resolve ``mesh_shape``
     for one process's local devices with the JAX module's policies and
-    error messages, into a :class:`LocalMesh` record (the ``{data, model}``
-    shape and the devices).
+    error messages, into a :class:`LocalMesh`: a ``data`` × ``model`` grid
+    of ``torch.device`` objects;
+  * :func:`replicated`, :func:`shard_slices` and :func:`gather_slices` are
+    the layouts (the JAX module's ``replicated`` and ``shard_slices``
+    shardings): a tensor copied to every data device, an axis split over
+    the data devices and gathered back to the first device;
+  * :func:`param_sharding_rule` / :func:`shard_params` are the
+    tensor-parallel rule: a conv weight (OIHW) with at least 256 output
+    channels, divisible by the ``model`` axis, is split over it.
 
 A single process's local devices are every card of its host, as
 ``jax.local_devices()`` gives every chip; a process of a group has one card.
-A mesh of one device runs the CLIs' one-device path. In-process sharding
-over several local devices (a data or model axis > 1, or the automatic
-mesh of a single process on several cards) is not ported:
-:func:`require_one_device` raises for it (ROADMAP.md queue 1 item 8, which
-waits for a machine with several cards); ``mesh_shape: {data: 1}`` runs on
-the first card.
+One process shards over its devices in process, with one host thread
+enqueueing each device's work in turn (launches are asynchronous, so
+distinct cards overlap): ``episode/pipeline.EpisodeRunner(mesh=...)``
+splits an eval episode's query slices over ``data``,
+``train/lgca.sharded_lgca_train_step`` and ``evaluate_lgca_volume(mesh=...)``
+the LGCA slice batch, ``train/trainer.sharded_train_step`` the RP_Net
+training episodes (``data``) and the wide convs' output channels
+(``model``). :func:`make_mesh` also takes a list that repeats a device
+(``[cpu] * 8``, ``[cuda:0] * 2``): logical devices, which run the same code
+path on one device (the counterpart of the JAX tests' 8 virtual CPU
+devices). :func:`local_devices` and the CLIs' resolver report real devices
+only.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import datetime
 import os
@@ -146,13 +160,31 @@ def allgather_merge_records(arrays: Sequence[np.ndarray], failures: int = 0):
 @dataclasses.dataclass
 class LocalMesh:
     """A resolved mesh: its ``{"data", "model"}`` shape and its devices,
-    data-major."""
+    data-major (row ``i`` of the grid is ``devices[i * model:(i + 1) *
+    model]``). A device may repeat (logical devices)."""
     shape: Dict[str, int]
     devices: List
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def rows(self) -> List[List]:
+        """The grid: one list of ``model`` devices per data index."""
+        m = self.shape["model"]
+        return [self.devices[i * m:(i + 1) * m] for i in range(self.shape["data"])]
+
+    @property
+    def data_devices(self) -> List:
+        """The first device of each row: where a data shard runs."""
+        return [row[0] for row in self.rows]
+
+    @property
+    def first(self):
+        """The mesh's first device: where the master parameters and the
+        gathered outputs live."""
+        return self.devices[0]
 
 
 def local_devices(device_type: Optional[str] = None) -> List[torch.device]:
@@ -237,30 +269,77 @@ def resolve_local_mesh(mesh_shape: Optional[Dict[str, int]], devices=None,
     return make_mesh(None, devices=local)
 
 
-def require_one_device(mesh: LocalMesh) -> None:
-    """Raise for a mesh of more than one device: the CLIs run one device
-    a process."""
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"mesh {mesh.shape} over {mesh.size} devices: in-process multi-device "
-            "sharding is not ported to rpnet_tpu_torch (ROADMAP.md queue 1 item 8); "
-            "run one process per card (multihost) or set mesh_shape: {data: 1} "
-            "to run on the first card")
-
-
 def resolve_cli_mesh(mesh_shape, device, batch_divisor: Optional[int] = None,
                         prefix: str = "") -> Optional[LocalMesh]:
     """A CLI's mesh as the JAX CLIs resolve it (``rpnet_tpu/cli/
     test_rpnet.py:76-83, 348-355``, ``cli/train.py:113-123``): where
     ``mesh_shape`` is set or the process has more than one local device of
     ``device``'s type, resolved and printed (``[{prefix}mesh {shape} over N
-    local devices]``); None otherwise. Raises for a mesh of more than one
-    device (:func:`require_one_device`)."""
+    local devices]``); None otherwise."""
     local = local_devices(torch.device(device).type)
     if not (mesh_shape or len(local) > 1):
         return None
     mesh = resolve_local_mesh(mesh_shape, devices=local, batch_divisor=batch_divisor)
     n = mesh.size if batch_divisor is not None else len(local)
     print(f"[{prefix}mesh {mesh.shape} over {n} local devices]")
-    require_one_device(mesh)
     return mesh
+
+
+# --------------------------------------------------------------------------
+# layouts and the tensor-parallel rule
+# --------------------------------------------------------------------------
+
+def replicated(mesh: LocalMesh, tensor: torch.Tensor) -> List[torch.Tensor]:
+    """``tensor`` on each data device, one copy per distinct device (logical
+    devices that repeat a device share it); copies do not block the host."""
+    copies: Dict = {}
+    return [copies.setdefault(d, tensor.to(d, non_blocking=True))
+            for d in mesh.data_devices]
+
+
+def shard_slices(mesh: LocalMesh, tensor: torch.Tensor, axis: int = 0) -> List[torch.Tensor]:
+    """``tensor`` split along ``axis`` over the data devices, in order: the
+    first ``n % data`` shards one longer (``torch.tensor_split``); a device
+    whose shard is empty gets none. A shard already on its device is a view."""
+    parts = torch.tensor_split(tensor, mesh.shape["data"], dim=axis)
+    return [p.to(d, non_blocking=True) for p, d in zip(parts, mesh.data_devices)
+            if p.shape[axis]]
+
+
+def gather_slices(parts: Sequence[torch.Tensor], device, axis: int = 0) -> torch.Tensor:
+    """The shards of :func:`shard_slices` concatenated on ``device``."""
+    return torch.cat([p.to(device, non_blocking=True) for p in parts], dim=axis)
+
+
+def module_replicas(module: torch.nn.Module, devices) -> Dict[torch.device, torch.nn.Module]:
+    """``module`` on each distinct device of ``devices``: the module itself
+    on the device it lives on, a copy elsewhere (made once; the caller
+    re-makes them after the weights change)."""
+    home = next(module.parameters()).device
+    out: Dict[torch.device, torch.nn.Module] = {}
+    for d in map(torch.device, devices):
+        if d not in out:
+            out[d] = module if d == home else copy.deepcopy(module).to(d)
+    return out
+
+
+def param_sharding_rule(name: str, tensor: torch.Tensor, mesh: LocalMesh,
+                        min_channels: int = 256) -> str:
+    """``"model"`` where the tensor-parallel rule splits ``name`` over the
+    ``model`` axis, else ``"replicated"``: a conv weight (OIHW) whose output
+    channels are at least ``min_channels`` and divisible by the axis, as
+    ``rpnet_tpu/parallel/mesh.py:188-205`` picks HWIO kernels by their
+    last axis. Biases and norm parameters stay replicated."""
+    n_model = mesh.shape.get("model", 1)
+    shape = tuple(tensor.shape)
+    if (n_model > 1 and name.endswith("weight") and len(shape) == 4
+            and shape[0] >= min_channels and shape[0] % n_model == 0):
+        return "model"
+    return "replicated"
+
+
+def shard_params(model: torch.nn.Module, mesh: LocalMesh,
+                 min_channels: int = 256) -> Dict[str, str]:
+    """The rule's placement of every ``state_dict`` entry of ``model``."""
+    return {name: param_sharding_rule(name, t, mesh, min_channels)
+            for name, t in model.state_dict().items()}

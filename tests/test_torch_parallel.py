@@ -14,9 +14,13 @@ the CLIs' mesh branches.
     explicit request to a coordinator nobody serves (a short timeout), a
     printed skip under ``RPNET_MULTIHOST_OPTIONAL=1``;
   * the CLIs: RP_Net eval with ``{data: 8}`` raises the JAX resolver's
-    message; LGCANet_V3 with ``{data: 1}`` trains and evaluates.
+    message; LGCANet_V3 with ``{data: 1}`` trains and evaluates;
+  * a 2-device logical mesh runs an episode, and a single process on four
+    cards resolves its mesh over them.
 
-The two-process eval over a real gloo group is ``test_torch_multiprocess.py``.
+The two-process eval over a real gloo group is ``test_torch_multiprocess.py``;
+the in-process sharded paths against the JAX package are
+``test_torch_sharding.py``.
 """
 
 import socket
@@ -221,9 +225,30 @@ def test_lgca_runs_on_a_one_device_mesh(tmp_path, capsys):
 
 
 def test_more_than_one_device_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        mesh.require_one_device(mesh.make_mesh({"data": 2}, devices=["a", "b"]))
-    mesh.require_one_device(mesh.make_mesh({"data": 1}, devices=["a"]))
+    """Once a refusal, now the path: a mesh of two logical CPU devices runs
+    an episode, split over both (each shard launches its own work), with
+    the one-device runner's metrics; the real local devices are still one
+    CPU."""
+    from rpnet_tpu_torch.episode.pipeline import EpisodeRunner
+    from rpnet_tpu_torch.episode.sampler import Episode
+    from rpnet_tpu_torch.models.factory import build_rpnet
+
+    cfg = {"backbone": "UNet", "crop_size": [16, 16], "k": 2, "n_iter_refinement": 1,
+           "mask_refinement_correlation_radius": 1, "reg_affine_iters": 2,
+           "compute_dtype": "float32", "slice_bucket": 3, "max_slices": 5}
+    rng = np.random.RandomState(0)
+    lab = (rng.rand(1, 5, 16, 16) > 0.6).astype(np.float32)
+    ep = Episode(support_images=rng.uniform(-1, 1, (1, 5, 16, 16)).astype(np.float32),
+                 support_labels=lab, query_images=rng.uniform(-1, 1, (5, 16, 16)).astype(np.float32),
+                 query_labels=lab[0], class_id=0, pid="p", supp_pids=[(0, 0)])
+    two = mesh.make_mesh({"data": 2}, devices=[torch.device("cpu")] * 2)
+    assert two.data_devices == [torch.device("cpu")] * 2 and two.size == 2
+    sharded = EpisodeRunner(build_rpnet(cfg, num_iter=1), cfg, "cpu", mesh=two)
+    assert (sharded.bucket, sharded.max_slices) == (4, 6)   # rounded up to the data axis
+    assert sharded._bounds(5) == [(0, 3), (3, 5)]
+    want = EpisodeRunner(build_rpnet(cfg, num_iter=1), cfg, "cpu").run(ep)
+    got = sharded.run(ep)
+    assert got == want
     assert mesh.local_devices("cpu") == mesh.local_devices() == [torch.device("cpu")]
     assert mesh.resolve_local_mesh(None).shape == {"data": 1, "model": 1}
 
@@ -250,15 +275,20 @@ def test_local_devices_on_a_host_with_several_cards(monkeypatch):
 def test_cli_mesh_on_a_host_with_several_cards(capsys):
     """One process on four cards resolves its mesh as the JAX CLI does on
     four chips: with no ``mesh_shape`` (the automatic mesh over every card)
-    or ``{data: 4}`` the mesh spans four devices and raises, naming the
-    ROADMAP item; ``{data: 1}`` runs on the first card; ``{data: 8}``
+    or ``{data: 4}`` or ``{data: 2, model: 2}`` the mesh spans the four
+    cards, data-major; ``{data: 1}`` runs on the first card; ``{data: 8}``
     raises the JAX resolver's message."""
     jax_four = jax.devices()[:4]
+    cards = [torch.device("cuda", i) for i in range(4)]
     for shape in (None, {"data": 4}, {"data": 2, "model": 2}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            mesh.resolve_cli_mesh(shape, "cuda")
-        want = dict(jax_mesh.resolve_local_mesh(shape, devices=jax_four).shape)
+        got = mesh.resolve_cli_mesh(shape, "cuda")
+        jax_got = jax_mesh.resolve_local_mesh(shape, devices=jax_four)
+        want = dict(jax_got.shape)
         assert f"[mesh {want} over 4 local devices]" in capsys.readouterr().out
+        assert got.shape == want and got.devices == cards
+        assert [[jax_four.index(d) for d in row] for row in jax_got.devices.tolist()] \
+            == [[cards.index(d) for d in row] for row in got.rows]
+        assert got.data_devices == [row[0] for row in got.rows]
     one = mesh.resolve_cli_mesh({"data": 1}, "cuda")
     assert one.devices == [torch.device("cuda", 0)] and one.shape == {"data": 1, "model": 1}
     assert "[mesh {'data': 1, 'model': 1} over 4 local devices]" in capsys.readouterr().out
