@@ -1,0 +1,7 @@
+"""FLOPs of the traced steps' forward and backward over the wall of the same work run without the profiler, times the TF32 dense peak."""
+
+from _common import mfu
+
+
+def read(run):
+    return mfu(run)
