@@ -8,7 +8,7 @@ the named ones alone, with the phases whose results they read (``main``
 for ``eval-switches``, ``deform``, ``serve``, ``multiprocess`` and ``mesh``;
 ``trained`` for ``serve``;
 ``training`` for ``train-switches`` and ``train-deform``; ``lgca-train``
-for ``lgca-eval`` and ``lgca-profile``) and the build; the kernel JSON then lists the rows
+for ``lgca-eval``) and the build; the kernel JSON then lists the rows
 whose checks ran, with the launches of the path phases that ran (null,
 and no ``launches_by_run`` entry, for a path phase that did not). Phase
 names in brackets below.
@@ -97,9 +97,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      paths, 11 launches an episode, no failure; each pass's episodes/s and
      ``stage_timing`` logged (no forward hook); then one warm episode queued
      on the spec and on the host path under
-     ``torch.cuda.set_sync_debug_mode("warn")``: no synchronizing call; and
-     one warm spec episode under ``torch.profiler`` (device time by kernel
-     group, device operations, busy share);
+     ``torch.cuda.set_sync_debug_mode("warn")``: no synchronizing call;
   3d. breadth [breadth] — the CLI on 2 episodes under ``backbone: vgg`` (scale 8),
      ``backbone: resnet``, ``mask_feature_map: x2``, ``use_relation_enc:
      concat`` and ``use_all_supports`` + ``multishot_fusion`` with 2 shots
@@ -117,8 +115,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and ``gather``: 11 launches an episode, no failed episode, every Dice
      finite; each episode's demons prior Dice beside phase 3's affine-only
      one and the warm pass's episodes/s logged; under matmul one warm spec
-     dispatch under the sync debug mode (no synchronizing call) and one
-     warm episode profiled (device operations);
+     dispatch under the sync debug mode (no synchronizing call);
   serve-routes [serve-routes] — the CRE alone at the eval shape under each
      opt-in forward's switch (rows 5, 6, 2, 3) exported on the card, saved
      and loaded: one node of that route's custom op in the graph; the
@@ -149,7 +146,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
   5c. deformable training [train-deform] — 2 steps of the train CLI with
      ``do_deformable: True`` (50 demons steps, matmul structure): 5 forward
      and 5 backward launches a step, finite losses, parameters moved;
-  5d. training breadth [train-breadth, train-profile] — the train CLI at full width (the example's
+  5d. training breadth [train-breadth] — the train CLI at full width (the example's
      training block) for 1 step each (2 for vgg and bfloat16) under
      ``backbone: vgg`` (scale 8), ``backbone: resnet``, ``mask_feature_map:
      x2``, ``use_relation_enc: concat``, ``unet_normalize_type: GroupNorm``,
@@ -205,12 +202,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      launch counts set to 0 just before and read just after: no correlation
      kernel runs (the LGCA path has none); finite losses, warm s/step and
      peak memory logged, the checkpoint loading into the eval model;
-  lgca-eval [lgca-eval, lgca-profile] — the port's eval CLI on the synthetic eval volume with that
+  lgca-eval [lgca-eval] — the port's eval CLI on the synthetic eval volume with that
      checkpoint: 18 forwards of 16 slices, no correlation launch, no failed
-     volume; volumes/s, peak memory and per-ROI Dice logged; then one warm
-     train step and one warm eval volume under ``torch.profiler`` (device
-     time by operator group: 3D and 2D convolutions, attention, norms,
-     other);
+     volume; volumes/s, peak memory and per-ROI Dice logged;
   multiprocess [multiprocess] — the eval CLI on phase 3's configuration
      and volumes, each volume listed ``MP_REPEAT`` times (32 episodes a
      pass), ``MP_RUNS`` passes a run, as one process and as two processes
@@ -1163,7 +1157,7 @@ def phase_data_paths(cfg):
     the spec and host paths under ``torch.cuda.set_sync_debug_mode("warn")``:
     no synchronizing call (whether the episode was still running when the
     call returned is logged: a device that keeps up with the host's enqueue
-    may have run all of it). Then one warm spec episode profiled."""
+    may have run all of it)."""
     per_path, launches_all = {}, {}
     for label, kw in DATA_PATHS.items():
         results, launches, episodes, passes = run_cli_config(
@@ -1217,9 +1211,7 @@ def synchronizing_calls(fn):
 
 def check_dispatch_does_not_block(cfg, tag: str = "data", host: bool = True):
     """One warm episode queued on the spec and (with ``host``) on the host
-    path under the sync debug mode, then one warm spec episode profiled;
-    logged under ``[tag-sync]`` and ``[tag-profile]``. Returns the profile's
-    device operations."""
+    path under the sync debug mode, logged under ``[tag-sync]``."""
     import torch
 
     from rpnet_tpu_torch.cli.test_rpnet import build_runner
@@ -1256,16 +1248,6 @@ def check_dispatch_does_not_block(cfg, tag: str = "data", host: bool = True):
             f"synchronizing calls in the dispatch: {len(syncs)}")
         if syncs:
             raise AssertionError(f"{label} dispatch blocks the host: {syncs[:3]}")
-    # where a warm spec episode's time goes: dispatch (the host's enqueue)
-    # and settle, profiled
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()   # (after the profiler's own start)
-        runner.finalize(runner.dispatch_spec(spec, sampler))
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return log_device_profile(f"{tag}-profile", "one warm spec episode (dispatch + settle)",
-                              prof, wall_ms)
 
 
 def phase_breadth(cfg, paths):
@@ -1409,67 +1391,6 @@ def phase_train_switches(cfg, default_first_loss: float):
                                  f"first loss {default_first_loss}")
         out[label] = launches
     return out
-
-
-def profile_train_step(cfg):
-    """torch.profiler over one warm full-width train step on one batch of the
-    synthetic train set: device time by kernel group and the busy share of
-    the step's wall time (a measurement; nothing is checked)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from rpnet_tpu_torch.cli.train import collate_batch
-    from rpnet_tpu_torch.config import Config
-    from rpnet_tpu_torch.episode.sampler import EpisodeSampler
-    from rpnet_tpu_torch.models.factory import build_rpnet
-    from rpnet_tpu_torch.train.trainer import make_optimizer, make_train_step
-
-    config = Config(cfg)
-    sampler = EpisodeSampler(config["data_dir"], config["train_set_name"], config,
-                             mode="train")
-    batch = [torch.from_numpy(a).cuda() for a in collate_batch(
-        [sampler.sample(j) for j in range(int(cfg["batch_size"]))], int(cfg["k"]))]
-    model = build_rpnet(config, num_iter=config["n_iter_refinement"], device="cuda")
-    step = make_train_step(model, config, make_optimizer(model.parameters(), config))
-    state = {"step": 0}
-    float(step(state, batch)["loss"])   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        float(step(state, batch)["loss"])
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-
-    log_device_profile("train-profile", "one warm step", prof, wall_ms)
-
-
-def log_device_profile(tag: str, what: str, prof, wall_ms: float):
-    """Device time by kernel group (correlation, cuDNN convolutions, other),
-    the device operations run, the busy share of ``wall_ms`` and the top ten
-    kernels of a ``torch.profiler`` run (a measurement; nothing is
-    checked)."""
-    from rpnet_tpu_torch.utils.profiling import device_events, device_ms as dev_ms
-
-    # device-side events only (kernels, copies), the library's filter
-    events = device_events(prof)
-    groups = {"correlation kernels": 0.0, "convolutions (cuDNN)": 0.0, "other": 0.0}
-    for e in events:
-        n = e.key.lower()
-        g = ("correlation kernels" if "local_corr" in n else
-             "convolutions (cuDNN)" if any(t in n for t in ("conv", "cudnn", "xmma", "gemm",
-                                                            "dgrad", "wgrad", "winograd",
-                                                            "fft", "complex"))
-             else "other")
-        groups[g] += dev_ms(e)
-    total = sum(groups.values())
-    top = sorted(events, key=dev_ms, reverse=True)[:10]
-    n_ops = sum(e.count for e in events)
-    log(f"[{tag}] {what}: wall {wall_ms:.2f} ms, device time {total:.2f} ms (busy share "
-        f"{total / wall_ms:.3f}) in {n_ops} device operations; "
-        "by group " + json.dumps({k: round(v, 3) for k, v in groups.items()}))
-    for e in top:
-        log(f"[{tag}]   {dev_ms(e):9.3f} ms  {e.count:5d}x  {e.key[:90]}")
-    return n_ops
 
 
 def bn_cancelled_biases(model):
@@ -1824,8 +1745,8 @@ def phase_deformable_eval(cfg, main_episodes):
     launches of row 1 an episode, no failed episode, every Dice finite; each
     episode's demons prior Dice logged beside the main path's affine-only
     prior; the warm pass's episodes/s. Then, under matmul, one warm spec
-    dispatch under the sync debug mode and one warm episode profiled."""
-    out, ops = {}, None
+    dispatch under the sync debug mode."""
+    out = {}
     for sampler in ("matmul", "gather"):
         results, launches, episodes, passes = run_cli_config(
             cfg, f"deform_{sampler}", n_runs=2, do_deformable=True, reg_sampler=sampler)
@@ -1842,10 +1763,10 @@ def phase_deformable_eval(cfg, main_episodes):
             f"launches {launches}; prior Dice per episode (affine only, with demons): {pairs}")
         out[sampler] = launches
         if sampler == "matmul":
-            ops = check_dispatch_does_not_block(
+            check_dispatch_does_not_block(
                 dict(cfg, do_deformable=True, reg_sampler=sampler), tag=f"deform-{sampler}",
                 host=False)
-    return out, ops
+    return out
 
 
 def phase_eval_3d():
@@ -2332,119 +2253,6 @@ def phase_lgca_eval(cfg, ckpt: str):
         raise AssertionError(f"LGCA eval: {res['failed_volumes']} failed, {len(calls)} "
                              f"forwards, launches {launches}")
     return res
-
-
-def profile_lgca(cfg, ckpt: str):
-    """torch.profiler over one warm LGCA train step and one warm eval volume
-    (18 forwards), after two warm eval volumes timed without it: device time
-    by group and the busy share (a measurement; nothing is checked)."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from rpnet_tpu_torch.config import Config
-    from rpnet_tpu_torch.episode.lgca_data import LGCAVolumeSampler
-    from rpnet_tpu_torch.models.factory import build_lgcanet
-    from rpnet_tpu_torch.train.convert import load_into, load_torch_checkpoint
-    from rpnet_tpu_torch.train.lgca import evaluate_lgca_volume, init_lgca, make_lgca_train_step
-    from rpnet_tpu_torch.utils.timing import cuda_ms
-
-    config = Config(cfg)
-    sampler = LGCAVolumeSampler(config["data_dir"], config["train_set_name"], config)
-    s = sampler.sample(0, rng=np.random.RandomState(0))
-    batch = [torch.from_numpy(s[k]).cuda() for k in ("volume", "slices", "mask",
-                                                      "downsampled_volume_mask")]
-    model, optimizer, state = init_lgca(config, device="cuda")
-    step = make_lgca_train_step(model, optimizer)
-    float(step(state, batch)["loss"])   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        float(step(state, batch)["loss"])
-        torch.cuda.synchronize()
-    log_lgca_profile("lgca-train-profile", "one warm step", prof,
-                     (time.perf_counter() - t0) * 1e3)
-
-    ev = LGCAVolumeSampler(config["data_dir"], config["eval_set_name"], config, mode="eval")
-    sample = ev.sample(0)
-    model = build_lgcanet(config, device="cuda")
-    load_into(model, load_torch_checkpoint(ckpt)["state_dict"])
-    evaluate_lgca_volume(model, sample, "cuda")   # warm-up
-    walls = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        evaluate_lgca_volume(model, sample, "cuda")   # ends in the predictions' fetch
-        walls.append(time.perf_counter() - t0)
-    log(f"[lgca-eval-profile] warm eval volume (sampled volume on the host), seconds "
-        f"{walls}: {1 / min(walls):.4f} volumes/s")
-    volume = torch.from_numpy(sample["volume"]).cuda()
-    chunk = torch.from_numpy(sample["slices"][:LGCA_CHUNK]).cuda()
-    with torch.no_grad():
-        ctx_ms = cuda_ms(lambda: model.context_net(volume), 5)
-        fwd_ms = cuda_ms(lambda: model(volume, chunk), 5)
-    log(f"[lgca-eval-profile] one chunk's forward {fwd_ms:.3f} ms, the context net's "
-        f"alone {ctx_ms:.3f} ms (CUDA events, median of 3 rounds of 5), "
-        f"x{-(-sample['slices'].shape[0] // LGCA_CHUNK)} chunks a volume")
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        evaluate_lgca_volume(model, sample, "cuda")
-        torch.cuda.synchronize()
-    log_lgca_profile("lgca-eval-profile", "one warm eval volume (18 forwards of 16 slices)",
-                     prof, (time.perf_counter() - t0) * 1e3)
-
-
-# operators whose kernels (their own and those of the operators inside them)
-# make up each group of the LGCA profiles
-LGCA_PROFILE_GROUPS = {
-    "convolutions": ("aten::cudnn_convolution", "aten::convolution_backward"),
-    # instance norms (torch's batch norm kernels), eval batch norms, and the
-    # training batch norms' statistics (models/blocks.BatchNorm2d: var_mean;
-    # their scale and shift count as "other")
-    "norms": ("aten::native_batch_norm", "aten::cudnn_batch_norm",
-              "aten::native_batch_norm_backward", "aten::cudnn_batch_norm_backward",
-              "aten::var_mean"),
-    "attention": ("aten::mm", "aten::_softmax", "aten::_softmax_backward_data",
-                  "aten::adaptive_max_pool2d", "aten::adaptive_max_pool3d",
-                  "aten::adaptive_max_pool2d_backward", "aten::adaptive_max_pool3d_backward"),
-    "trilinear x8": ("aten::upsample_trilinear3d", "aten::upsample_trilinear3d_backward"),
-}
-
-
-def log_lgca_profile(tag: str, what: str, prof, wall_ms: float):
-    """Device time of each kernel under the nearest enclosing operator of
-    ``LGCA_PROFILE_GROUPS`` (the convolutions split into 3D and 2D by that
-    operator's first input's rank), "other" where none encloses it; each
-    kernel counted once, under the operator that launched it (its
-    ``kernels``: an operator's inclusive device time counts some kernels
-    twice under ``no_grad``); then ``log_device_profile``'s line and top ten
-    kernels."""
-    from rpnet_tpu_torch.utils.profiling import device_events, device_ms
-
-    group_of = {op: g for g, ops in LGCA_PROFILE_GROUPS.items() for op in ops}
-    groups = {"3D convolutions": 0.0, "2D convolutions": 0.0, "norms": 0.0,
-              "attention": 0.0, "trilinear x8": 0.0, "other": 0.0}
-    seen = set()
-    for e in prof.events():
-        us = sum(k.duration for k in getattr(e, "kernels", []) or [])
-        if not us or e.id in seen:     # an operator recorded twice carries its kernels twice
-            continue
-        seen.add(e.id)
-        op = e
-        while op is not None and op.name not in group_of:
-            op = op.cpu_parent
-        group = group_of[op.name] if op is not None else "other"
-        if group == "convolutions":
-            rank = len(next((sh for sh in op.input_shapes or [] if sh), []))
-            group = "3D convolutions" if rank == 5 else "2D convolutions"
-        groups[group] += us / 1e3
-    total = sum(device_ms(e) for e in device_events(prof))
-    log(f"[{tag}] {what}: device time {sum(groups.values()):.2f} ms by the operator "
-        f"that launched it (the kernels' own total {total:.2f} ms) "
-        + json.dumps({k: round(v, 3) for k, v in groups.items()}))
-    log_device_profile(tag, what, prof, wall_ms)
-
 
 
 def phase_native_io(paths):
@@ -3681,7 +3489,6 @@ PHASES = {
     "train-deform": (lambda run: phase_deformable_training(
         run.train_data()[1], run.results["training"]["res"]["step_losses"][0]), ("training",)),
     "train-breadth": (run_train_breadth, ()),
-    "train-profile": (lambda run: profile_train_step(run.train_data()[1]), ()),
     "train-reference": (lambda run: [phase_train_reference(b, d) for b, d in TRAIN_REFERENCE],
                         ()),
     "trained": (lambda run: phase_trained_eval(run.train_data()[1], run.eval_data()["cfg"]), ()),
@@ -3692,9 +3499,6 @@ PHASES = {
     "lgca-eval": (lambda run: phase_lgca_eval(run.lgca_data()[1],
                                               run.results["lgca-train"]["checkpoint"]),
                   ("lgca-train",)),
-    "lgca-profile": (lambda run: profile_lgca(run.lgca_data()[1],
-                                              run.results["lgca-train"]["checkpoint"]),
-                     ("lgca-train",)),
     "multiprocess": (lambda run: phase_multiprocess(run.eval_data()["cfg"]), ("main",)),
     "mesh": (lambda run: phase_mesh(run.eval_data()["cfg"], run.results["main"]["episodes"],
                                     run.lgca_data()[1]), ("main",)),
@@ -3757,7 +3561,7 @@ def kernel_entries(results):
                  **{f"data-{k}": v for k, v in (get("data-paths") or {}).items()},
                  **{f"breadth-{k}": v for k, v in (get("breadth") or {}).items()},
                  **ran("deform", lambda: {f"deform-{k}": v
-                                          for k, v in results["deform"][0].items()}),
+                                          for k, v in results["deform"].items()}),
                  **ran("eval-3d", lambda: {"eval3d": results["eval-3d"]}),
                  **{k: v["launches"] for k, v in (get("serve") or {}).items()},
                  **ran("lgca-eval", lambda: {"lgca-eval": {}}),   # it requires none
@@ -3858,10 +3662,7 @@ def main(argv=None) -> int:
             log(f"[kernels] {name} shape, local_correlation: {json.dumps(r)}")
         for kind, r in res["kernels"]["variant_train"].items():
             log(f"[kernels] training shape, {kind}: {json.dumps(r)}")
-    deform = res.get("deform")
-    log(f"[kernels] local_correlation launches by run {row1_runs}; training {train_runs}; "
-        f"device operations of one warm deformable (matmul) episode "
-        f"{deform[1] if deform else 'not run'}")
+    log(f"[kernels] local_correlation launches by run {row1_runs}; training {train_runs}")
     for (kind, dtype), r in (res.get("sweep-kernels") or {}).items():
         log(f"[kernels] sweep shape, {kind} {dtype}: {json.dumps(r)}")
     log("kernels " + json.dumps([

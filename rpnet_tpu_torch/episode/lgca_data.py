@@ -32,6 +32,7 @@ import numpy as np
 
 from rpnet_tpu_torch.core import nrrd_io
 from rpnet_tpu_torch.core.transforms import normalize, truncate_image
+from rpnet_tpu_torch.utils.profiling import span
 
 
 def _pad_to(vol: np.ndarray, shape, value=0.0) -> np.ndarray:
@@ -95,6 +96,7 @@ class LGCAVolumeSampler:
                 self._vol_cache.popitem(last=False)
         return vol, masks
 
+    @span("sample")
     def sample(self, idx: int, rng: Optional[np.random.RandomState] = None
                ) -> Dict[str, np.ndarray]:
         """One training sample, or in eval mode the whole volume's slices."""

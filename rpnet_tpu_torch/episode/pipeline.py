@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from rpnet_tpu_torch.core.metrics import dice, ncc
 from rpnet_tpu_torch.episode.sampler import Episode, EpisodeSpec
 from rpnet_tpu_torch.registration.fit import register_episode
+from rpnet_tpu_torch.utils.profiling import span
 
 
 def episode_outputs_fn(model, affine_iters: int, fit_scale: int = 1,
@@ -91,11 +92,12 @@ def episode_outputs_fn(model, affine_iters: int, fit_scale: int = 1,
             supp_t = supp_t.repeat(n_way, 1, 1, 1, 1, 1)
             fore = fore.repeat(n_way, 1, 1, 1, 1)
         cast = lambda a: a.to(compute_dtype)
-        with torch.no_grad():
-            out = model(cast(supp_t), cast(fore), cast(1.0 - fore),
-                        cast(qry_img[..., None]), cast(appr))
-        refinement = out["refinement"].float()
-        ref_preds = (torch.softmax(refinement, dim=-1)[..., 1] > 0.5).float()
+        with span("network", qry_img.device):
+            with torch.no_grad():
+                out = model(cast(supp_t), cast(fore), cast(1.0 - fore),
+                            cast(qry_img[..., None]), cast(appr))
+            refinement = out["refinement"].float()
+            ref_preds = (torch.softmax(refinement, dim=-1)[..., 1] > 0.5).float()
         return ref_preds, appr, warped_src
 
     return fn

@@ -52,6 +52,7 @@ from rpnet_tpu_torch.core.transforms import (crop, gamma_transform,
                                              keep_only_annotation_z_slices,
                                              normalize, pad2factor,
                                              truncate_image)
+from rpnet_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -219,6 +220,7 @@ class EpisodeSampler:
         pool = [i for i in range(len(self.data_info[ci])) if i != di]
         return random.choices(pool, k=self.cfg["n_shot"])
 
+    @span("sample")
     def sample(self, idx: int, picks: Optional[List[int]] = None) -> Episode:
         ci, di = self.indices[idx]
         pid = self.data_info[ci][di]["pid"]

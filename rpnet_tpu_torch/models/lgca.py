@@ -47,6 +47,7 @@ from rpnet_tpu_torch.models.blocks import (NORMS, AttentionBlock, Conv2d,
                                            on_shards, replica_call)
 from rpnet_tpu_torch.models.losses import dice_loss_per_class
 from rpnet_tpu_torch.ops.sampling import max_pool2d
+from rpnet_tpu_torch.utils.profiling import span
 
 P_NUM = (24, 32, 64, 64)   # 3D pyramid channel counts (lgca_net_v3.py:120)
 # (heads, embedding features, embedding size) of the slice attention per level
@@ -309,7 +310,8 @@ class LGCANetV3(nn.Module):
     def forward(self, volume, slices) -> Dict[str, torch.Tensor]:
         if isinstance(slices, Shards):
             return self._forward_shards(volume, slices)
-        feats = self.context_net(volume)
+        with span("lgca.context", volume.device):
+            feats = self.context_net(volume)
         feats["glob_feat"] = self._glob_feat(feats["d4"], slices)
         out = self.unet(slices, feats)
         out["dsv"] = feats["dsv"]
@@ -329,8 +331,9 @@ class LGCANetV3(nn.Module):
         by_device = {}
         for s in slices:
             if s.device not in by_device:
-                by_device[s.device] = replica_call(
-                    self.context_net, Shards([volume.to(s.device, non_blocking=True)]))[0]
+                with span("lgca.context", s.device):
+                    by_device[s.device] = replica_call(
+                        self.context_net, Shards([volume.to(s.device, non_blocking=True)]))[0]
         feats = {k: Shards(by_device[s.device][k] for s in slices)
                  for k in ("d1", "d2", "d3", "d4")}
         feats["glob_feat"] = Shards(self._glob_feat(by_device[s.device]["d4"], s)

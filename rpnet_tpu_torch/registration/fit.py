@@ -38,6 +38,7 @@ from rpnet_tpu_torch.ops.sampling import avg_pool2d, grid_sample, interpolate_bi
 from rpnet_tpu_torch.registration.affine import affine_warp, fit_affine
 from rpnet_tpu_torch.registration.demons import (demons_warp, diffeomorphic_2d,
                                                  fit_demons, identity_grid)
+from rpnet_tpu_torch.utils.profiling import span
 
 SAMPLERS = ("matmul", "gather")
 
@@ -66,43 +67,44 @@ def register_episode(support_imgs, query_imgs, support_labels, *,
 
     support_imgs, query_imgs: (S, H, W) in [-1, 1]; support_labels: (S, H, W).
     """
-    if sampler not in SAMPLERS:
-        raise ValueError(f"reg_sampler {sampler!r}: one of {SAMPLERS}")
-    S, H, W = support_imgs.shape
-    src01 = ((support_imgs + 1.0) * 0.5)[..., None]       # (S, H, W, 1)
-    dst01 = ((query_imgs + 1.0) * 0.5)[..., None]
-    theta, _ = fit_affine(_pooled(src01, fit_scale), _pooled(dst01, fit_scale),
-                          iters=affine_iters, lr=lr)
+    with span("registration", support_imgs.device):
+        if sampler not in SAMPLERS:
+            raise ValueError(f"reg_sampler {sampler!r}: one of {SAMPLERS}")
+        S, H, W = support_imgs.shape
+        src01 = ((support_imgs + 1.0) * 0.5)[..., None]       # (S, H, W, 1)
+        dst01 = ((query_imgs + 1.0) * 0.5)[..., None]
+        theta, _ = fit_affine(_pooled(src01, fit_scale), _pooled(dst01, fit_scale),
+                              iters=affine_iters, lr=lr)
 
-    # one 2-channel full-res warp (label + image)
-    both = torch.cat([support_labels[..., None], src01], dim=-1)
-    affine_both = affine_warp(both, theta)
-    affine_src01 = affine_both[..., 1:]
-    grid = identity_grid((H, W), both.dtype, both.device)
-    if demons_iters == 0:
-        flow = None
-        warped_both = grid_sample(affine_both, grid.expand(S, H, W, 2),
-                                  align_corners=False)
-    elif sampler == "gather":
-        flow, _ = fit_demons(affine_src01, dst01, demons_iters, lr, (sigma, sigma),
-                             diffeo_scaling)
-        warped_both = demons_warp(affine_both, flow, grid, diffeo_scaling)
-    else:
-        s = max(1, fit_scale)
-        sig = max(0.5, sigma / s)
-        flow, _ = fit_demons(_pooled(affine_src01, s), _pooled(dst01, s),
-                             demons_iters, lr, (sig, sig), diffeo_scaling)
-        grid_low = identity_grid((H // s, W // s), both.dtype, both.device)
-        disp = interpolate_bilinear(diffeomorphic_2d(flow, grid_low, diffeo_scaling),
-                                    (H, W))
-        warped_both = grid_sample(affine_both, grid + disp, align_corners=False)
+        # one 2-channel full-res warp (label + image)
+        both = torch.cat([support_labels[..., None], src01], dim=-1)
+        affine_both = affine_warp(both, theta)
+        affine_src01 = affine_both[..., 1:]
+        grid = identity_grid((H, W), both.dtype, both.device)
+        if demons_iters == 0:
+            flow = None
+            warped_both = grid_sample(affine_both, grid.expand(S, H, W, 2),
+                                      align_corners=False)
+        elif sampler == "gather":
+            flow, _ = fit_demons(affine_src01, dst01, demons_iters, lr, (sigma, sigma),
+                                 diffeo_scaling)
+            warped_both = demons_warp(affine_both, flow, grid, diffeo_scaling)
+        else:
+            s = max(1, fit_scale)
+            sig = max(0.5, sigma / s)
+            flow, _ = fit_demons(_pooled(affine_src01, s), _pooled(dst01, s),
+                                 demons_iters, lr, (sig, sig), diffeo_scaling)
+            grid_low = identity_grid((H // s, W // s), both.dtype, both.device)
+            disp = interpolate_bilinear(diffeomorphic_2d(flow, grid_low, diffeo_scaling),
+                                        (H, W))
+            warped_both = grid_sample(affine_both, grid + disp, align_corners=False)
 
-    dt = support_imgs.dtype
-    return RegistrationResult(
-        theta=theta,
-        flow=None if flow is None else flow.permute(0, 3, 1, 2),
-        warped_label=(warped_both[..., 0] > 0.1).to(dt),
-        affine_label=(affine_both[..., 0] > 0.1).to(dt),
-        warped_src=warped_both[..., 1] * 2.0 - 1.0,
-        affine_src=affine_both[..., 1] * 2.0 - 1.0,
-    )
+        dt = support_imgs.dtype
+        return RegistrationResult(
+            theta=theta,
+            flow=None if flow is None else flow.permute(0, 3, 1, 2),
+            warped_label=(warped_both[..., 0] > 0.1).to(dt),
+            affine_label=(affine_both[..., 0] > 0.1).to(dt),
+            warped_src=warped_both[..., 1] * 2.0 - 1.0,
+            affine_src=affine_both[..., 1] * 2.0 - 1.0,
+        )

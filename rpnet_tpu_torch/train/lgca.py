@@ -36,6 +36,7 @@ from rpnet_tpu_torch.models.lgca import LGCANetV3
 from rpnet_tpu_torch.parallel.mesh import (gather_slices, module_replicas,
                                            replicated, shard_slices)
 from rpnet_tpu_torch.train.trainer import make_optimizer
+from rpnet_tpu_torch.utils.profiling import span
 
 
 def init_lgca(config, seed: int = 0, device="cpu", steps_per_epoch: int = 1):
@@ -84,6 +85,7 @@ def sharded_lgca_train_step(model: LGCANetV3, optimizer: torch.optim.Optimizer, 
 def _lgca_step(model: LGCANetV3, optimizer: torch.optim.Optimizer, forward):
     """The step around ``forward(volume, slices)`` → {seg_2d, dsv}."""
 
+    @span("train.step")
     def train_step(state: Dict, batch) -> Dict[str, torch.Tensor]:
         volume, slices, mask, vmask = batch
         model.train()
@@ -102,6 +104,7 @@ def _lgca_step(model: LGCANetV3, optimizer: torch.optim.Optimizer, forward):
 
 
 @torch.no_grad()
+@span("lgca.volume")
 def evaluate_lgca_volume(model: LGCANetV3, sample: Dict[str, np.ndarray], device,
                          chunk: int = 16, mesh=None) -> Dict[str, Optional[float]]:
     """Whole-volume eval (``rpnet_tpu/train/lgca.py:117-165``): every
@@ -139,14 +142,16 @@ def evaluate_lgca_volume(model: LGCANetV3, sample: Dict[str, np.ndarray], device
              for s in shard_slices(mesh, sl)], device)
     preds = [torch.sigmoid(forward(slices[z0:z0 + chunk])) > 0.5
              for z0 in range(0, D, chunk)]
-    pred = torch.cat(preds)[:D].cpu().numpy()
+    with span("lgca.fetch"):   # the wait for the queued chunks, then the copy
+        pred = torch.cat(preds)[:D].cpu().numpy()
 
     out: Dict[str, Optional[float]] = {}
-    for ki in range(K):
-        gt = mask[..., ki] > 0.5
-        if not gt.any():
-            out[f"class_{ki}"] = None
-            continue
-        p = pred[..., ki]
-        out[f"class_{ki}"] = float(2 * (p & gt).sum() / (p.sum() + gt.sum()))
+    with span("lgca.dice"):
+        for ki in range(K):
+            gt = mask[..., ki] > 0.5
+            if not gt.any():
+                out[f"class_{ki}"] = None
+                continue
+            p = pred[..., ki]
+            out[f"class_{ki}"] = float(2 * (p & gt).sum() / (p.sum() + gt.sum()))
     return out

@@ -50,6 +50,7 @@ import torch
 from rpnet_tpu_torch.models.blocks import cast_statistics
 from rpnet_tpu_torch.models.losses import make_seg_loss
 from rpnet_tpu_torch.registration.fit import register_episode
+from rpnet_tpu_torch.utils.profiling import span
 
 
 def lr_schedule(config, steps_per_epoch: int = 1) -> Callable[[int], float]:
@@ -120,6 +121,7 @@ def make_train_step(model, config, optimizer) -> Callable:
                   for n, p in model.named_parameters()}
         return torch.func.functional_call(model, params, args)
 
+    @span("train.step")
     def train_step(state: Dict, batch) -> Dict[str, torch.Tensor]:
         model.train()
         seg, align = episode_losses(forward, *batch)
@@ -274,6 +276,7 @@ def sharded_train_step(model, config, optimizer, mesh) -> Callable:
         return (lambda *args: torch.func.functional_call(model, {**params, **buffers}, args),
                 buffers)
 
+    @span("train.step")
     def train_step(state: Dict, batch) -> Dict[str, torch.Tensor]:
         E = batch[0].shape[0]
         if E % n_data:

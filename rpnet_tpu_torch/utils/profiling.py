@@ -1,14 +1,21 @@
-"""Stage timing, profiler traces and NaN debugging.
+"""Spans of the program's work, stage timing and NaN debugging.
 
-The counterpart of ``rpnet_tpu/utils/profiling.py:30-108``:
-
+  * :class:`span` — a named span of the program's work (a context manager
+    or a decorator), kept as one :class:`Span` record in :data:`SPANS`, a
+    bounded ring that any code reads. Spans nest on each thread: a record
+    names its parent and its unit (the outermost span open on its thread:
+    an episode's, step's or volume's spans share it). Times are
+    ``time.time_ns()``, the clock ``torch.profiler`` stamps its events
+    with, so the records join a profiler trace. Given the device its work
+    runs on, a span opened while a profiler records also takes a pair of
+    CUDA events on that device's current stream; :meth:`Span.device_ms`
+    reads the pair once the work is done. No span synchronises the
+    device, and none is taken inside ``torch.export``'s tracing. The
+    benchmark's per-layer metrics read spans by name (``PERF.md`` §3);
   * :class:`StageTimer` — per-stage wall time, fenced on the device where a
-    stage names its outputs, reported as one ``stage_timing`` line;
-  * :func:`trace` — ``torch.profiler`` over the CPU (and CUDA where there is
-    a card) writing a Chrome trace under a directory;
-  * :func:`summarize_trace` — device time by operation from the newest such
-    trace; :func:`device_events` / :func:`device_ms` are the same device-row
-    filter over a live profiler's ``key_averages()``;
+    stage names its outputs, reported as one ``stage_timing`` line (the
+    counterpart of ``rpnet_tpu/utils/profiling.py:29-60``); each stage is
+    also a span of its name;
   * :func:`enable_nan_debugging` — the ``debug_nans`` switch: autograd's
     anomaly detection with its NaN check, and forward hooks that raise
     ``FloatingPointError`` at the first module whose output holds a NaN.
@@ -18,18 +25,85 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import glob
-import gzip
-import json
-import os
+import itertools
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 
 import torch
 
-# Chrome-trace categories of work on the device (kernels and copies): the
-# rows that take the place of an XLA device's "XLA Ops" timeline
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+SPANS_KEPT = 65536   # a long CLI run keeps its newest spans
+SPANS: Deque["Span"] = collections.deque(maxlen=SPANS_KEPT)
+_ids = itertools.count(1)
+_open = threading.local()   # each thread's stack of open spans
+
+
+class Span:
+    """One closed span: ``name``, its ``id``, its ``parent``'s id (None at
+    the top), its ``unit`` (the id of the outermost span open on its
+    thread, its own at the top), the ``thread``, ``start_ns`` and
+    ``end_ns`` (``time.time_ns()``), and ``events``, the (start, end) CUDA
+    event pair where one was taken."""
+    __slots__ = ("name", "id", "parent", "unit", "thread", "start_ns", "end_ns", "events")
+
+    def __init__(self, name: str, parent: Optional["Span"]):
+        self.name, self.id = name, next(_ids)
+        self.parent = parent.id if parent is not None else None
+        self.unit = parent.unit if parent is not None else self.id
+        self.thread = threading.get_ident()
+        self.events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
+        self.end_ns = 0
+        self.start_ns = time.time_ns()
+
+    def device_ms(self) -> Optional[float]:
+        """Device milliseconds between the span's events (waits for the end
+        event: read once the work is done); None without a pair."""
+        if self.events is None:
+            return None
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end)
+
+
+class span(contextlib.ContextDecorator):
+    """``with span(name[, device]):`` or ``@span(name)``: one :class:`Span`
+    in :data:`SPANS` when the block ends (module doc). ``device``: where the
+    block's work runs; on a CUDA device, while a profiler records, the span
+    takes its event pair on that device's current stream."""
+    __slots__ = ("name", "device", "record")
+
+    def __init__(self, name: str, device: Optional[torch.device] = None):
+        self.name, self.device, self.record = name, device, None
+
+    def _recreate_cm(self):   # a decorated function opens a span of its own a call
+        return span(self.name, self.device)
+
+    def __enter__(self):
+        if torch.compiler.is_compiling():   # torch.export traces the program: no span
+            return self
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        rec = self.record = Span(self.name, stack[-1] if stack else None)
+        d = self.device
+        if d is not None and d.type == "cuda" and torch._C._autograd._profiler_enabled():
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record(torch.cuda.current_stream(d))
+        stack.append(rec)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.record
+        if rec is None:
+            return False
+        self.record = None
+        _open.stack.pop()
+        if rec.events is not None:
+            rec.events[1].record(torch.cuda.current_stream(self.device))
+        rec.end_ns = time.time_ns()
+        SPANS.append(rec)
+        return False
 
 
 def _first_cuda_device(obj) -> Optional[torch.device]:
@@ -65,7 +139,8 @@ class StageTimer:
     def stage(self, name: str, block_on=None):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             device = _first_cuda_device(block_on)
             if device is not None:
@@ -80,64 +155,6 @@ class StageTimer:
 
     def as_dict(self) -> Dict[str, float]:
         return dict(self.totals)
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """``with trace(dir): run()`` → a Chrome trace ``*.pt.trace.json`` under
-    ``dir`` (CPU operators, and CUDA kernels and copies where there is a
-    card); yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
-    print(f"[profiler] trace written to {log_dir}")
-
-
-def summarize_trace(log_dir: str, top: int = 20) -> List[Tuple[str, float, int]]:
-    """Aggregate device-operation durations from the newest trace under
-    ``log_dir`` (``*.trace.json`` or ``*.trace.json.gz``). Returns
-    [(name, total_ms, count)] sorted by time.
-
-    Only events of the ``DEVICE_CATEGORIES`` (kernels, copies and memsets
-    on the card) are counted; where the trace has none (a CPU run), all
-    complete events are."""
-    files = [f for f in glob.glob(os.path.join(log_dir, "**", "*.trace.json*"),
-                                  recursive=True)
-             if f.endswith((".trace.json", ".trace.json.gz"))]
-    if not files:
-        raise FileNotFoundError(f"no trace.json under {log_dir}")
-    newest = max(files, key=os.path.getmtime)
-    opener = gzip.open if newest.endswith(".gz") else open
-    with opener(newest, "rt") as f:
-        events = json.load(f).get("traceEvents", [])
-    complete = [e for e in events if e.get("ph") == "X" and "dur" in e]
-    device = [e for e in complete if e.get("cat") in DEVICE_CATEGORIES]
-    agg = collections.Counter()
-    cnt = collections.Counter()
-    for e in device or complete:
-        agg[e.get("name", "?")] += e["dur"]
-        cnt[e.get("name", "?")] += 1
-    return [(name, dur / 1000.0, cnt[name]) for name, dur in agg.most_common(top)]
-
-
-def device_ms(e) -> float:
-    """A ``key_averages()`` entry's own device time in ms."""
-    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-
-def device_events(prof) -> list:
-    """The device rows of a live profiler: ``key_averages()`` entries of
-    kernels and copies on the card with device time (an operator's own
-    entry may also carry its kernels' time, so operators are left out)."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and device_ms(e) > 0]
 
 
 _nan_hooks: List = []

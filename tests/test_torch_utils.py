@@ -4,9 +4,6 @@ through the port's eval CLI.
 
   * ``StageTimer``: the JAX timer's ``stage_timing`` line for the same
     stages; a stage fenced on tensors;
-  * ``trace`` + ``summarize_trace``: a CPU profile written and summarized
-    (every complete event counts where no device rows exist), and on a
-    trace holding kernel and copy rows only those;
   * ``enable_nan_debugging``: a hook raises ``FloatingPointError`` naming
     the first module whose output holds a NaN; ``debug_nans: true`` makes
     the eval CLI raise at the first NaN of an episode whose query volume
@@ -18,8 +15,6 @@ through the port's eval CLI.
     neither).
 """
 
-import gzip
-import json
 import os
 import sys
 import time
@@ -58,39 +53,6 @@ def test_stage_timer_report_matches_jax():
         pass
     assert timer.counts["episode"] == 2 and timer.totals["episode"] >= 0.01
     assert timer.report().startswith("stage_timing episode=")
-
-
-def test_trace_and_summary_on_the_cpu(tmp_path, capsys):
-    a = torch.randn(64, 64)
-    with profiling.trace(str(tmp_path / "prof")):
-        for _ in range(3):
-            a = torch.mm(a, a).tanh()
-    assert f"[profiler] trace written to {tmp_path / 'prof'}" in capsys.readouterr().out
-    rows = profiling.summarize_trace(str(tmp_path / "prof"), top=50)
-    names = {n: (ms, c) for n, ms, c in rows}
-    assert names["aten::mm"][1] == 3 and names["aten::tanh"][1] == 3
-    assert all(ms >= 0 for _, ms, _ in rows)
-    assert [ms for _, ms, _ in rows] == sorted((ms for _, ms, _ in rows), reverse=True)
-    with pytest.raises(FileNotFoundError):
-        profiling.summarize_trace(str(tmp_path / "none"))
-
-
-def test_summary_counts_device_rows_only(tmp_path):
-    """A card's trace: kernels, copies and memsets count; the CPU operators
-    and runtime calls that launched them do not."""
-    events = [{"ph": "X", "cat": "cpu_op", "name": "aten::mm", "dur": 900},
-              {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "dur": 50},
-              {"ph": "X", "cat": "kernel", "name": "sm90_gemm", "dur": 300},
-              {"ph": "X", "cat": "kernel", "name": "sm90_gemm", "dur": 100},
-              {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "dur": 20},
-              {"ph": "X", "cat": "gpu_memset", "name": "Memset", "dur": 5},
-              {"ph": "i", "cat": "kernel", "name": "marker"}]
-    d = tmp_path / "run"
-    d.mkdir()
-    with gzip.open(d / "host.1.pt.trace.json.gz", "wt") as f:
-        json.dump({"traceEvents": events}, f)
-    assert profiling.summarize_trace(str(tmp_path)) == [
-        ("sm90_gemm", 0.4, 2), ("Memcpy HtoD", 0.02, 1), ("Memset", 0.005, 1)]
 
 
 def test_nan_hooks_name_the_first_module():
