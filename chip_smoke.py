@@ -78,6 +78,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
      then the affine fit (50 steps, fit_scale 1) on a sharp input (binary
      squares plus noise) on the card and on the CPU, theta's difference
      logged;
+  2e. affine fit [affine-fit] — the affine fit kernel (``ops/csrc/affine_fit.cu``,
+     the whole 50-step fit in one launch, through ``fit_affine``) against
+     its plain version (``fit_affine_plain``) on the card at (S, H, W) =
+     ``AFFINE_FIT_CASES`` (one slice, the eval cell's longest query and
+     the training step's 48 slices at 256², and 48 at 64², the fit at
+     ``reg_fit_scale`` 4), on smooth slices (a soft-edged organ on a
+     low-frequency texture) and on slices of two
+     ``benchmark/traffic/volumes.py`` volumes, on outputs NaN-poisoned:
+     theta equal bit for bit to the plain version's (the fit through
+     autograd over ``F.affine_grid`` + ``F.grid_sample``, which the kernel
+     replaced on the card), for one slice (a batch of one takes another
+     cuBLAS reduction, and the fits part by rounding) within 5e-5; each
+     step's loss within 1e-5 relative of the MSE at the kernel's own theta
+     of that step; two runs equal bit for bit; the kernel's time beside its bound
+     (:func:`affine_fit_bound`) and the plain version's, which is also
+     ``library_ms``; the launches the phase made, and those of phases 3
+     and 5 where they ran, in ``launches_by_run``;
   3. main path [main] — the port's eval CLI (``rpnet_tpu_torch.cli.test_rpnet``)
      on a synthetic Abd-110-shaped dataset at 272² volumes / 256² crops,
      configured by yamls/example.yml (U-Net d4, r=5, 10 refinement
@@ -277,13 +294,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")   # .gitignore lists build/
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {"bf16 tensor cores": 989e12,     # dense (NVIDIA data sheet)
-              "tf32 tensor cores": 494.7e12}   # dense; f32 as three passes (3xTF32)
+              "tf32 tensor cores": 494.7e12,   # dense; f32 as three passes (3xTF32)
+              "f32 FMA units": 67e12}          # outside the tensor cores
 N_EVAL_VOLUMES = 4
 N_TRAIN_VOLUMES = 4                        # × 3 train classes = 12 episodes
 TRAIN_EPISODES = 16                        # 4 steps of batch_size 4
 TRAIN_CLASSES = ("Spleen", "Kidney L", "Kidney R")
 KERNELS = ("local_corr", "local_corr_bwd", "local_corr_band", "local_corr_csub",
-           "local_corr_sweep")
+           "local_corr_sweep", "affine_fit")
 # the wrappers that count their kernel's launches, by the name they report
 WRAPPERS = ("local_correlation", "local_correlation_bwd", "local_correlation_band",
             "local_correlation_pdot", "local_correlation_packed",
@@ -329,6 +347,12 @@ BAND_PARTNER = {"float32": 300.0, "bfloat16": 30.0}
 SWEEP_EDGES = FWD_EDGES[:7] + (((2, 64, 24, 64), 1), ((2, 64, 24, 64), 3),
                                ((1, 100, 16, 64), 5), ((2, 12, 44, 48), 4),
                                ((1, 100, 36, 320), 4), ((2, 9, 18, 48), 2))
+# the affine fit kernel's cases (S, H, W): one slice, the eval cell's longest
+# query (71 slices) and the RP_Net training step's E·k = 48 at the 256² crop,
+# and 48 at 64² (reg_fit_scale 4); the first long case is the table's row
+AFFINE_FIT_CASES = ((1, 256, 256), (71, 256, 256), (48, 256, 256), (48, 64, 64))
+AFFINE_FIT_ITERS = 50
+AFFINE_FIT_FLOPS = 77   # f32 operations a pixel-step, an FMA as two (ops/csrc/affine_fit.cu)
 
 
 def log(msg: str) -> None:
@@ -1645,6 +1669,131 @@ def check_affine_sharp():
     log(f"[affine-sharp] 50 affine steps, fit_scale 1, 4 x 256² binary squares + noise: "
         f"theta card vs CPU max |diff| {diff:.3e} (theta moved {moved:.3e} from the identity)")
     return diff
+
+
+def affine_fit_bound(S: int, H: int, W: int, iters: int):
+    """Least time (ms) for the affine fit at these shapes, what bounds it and
+    the unit: ``AFFINE_FIT_FLOPS`` f32 operations a pixel-step on the FP32
+    units (f32 throughout: no tensor core keeps its arithmetic), against the
+    two images read once and theta and the losses written once at the HBM
+    rate."""
+    flops = float(AFFINE_FIT_FLOPS) * S * H * W * iters
+    nbytes = 4.0 * (2 * S * H * W + 6 * S + iters * S)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["f32 FMA units"]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            "f32 FMA units")
+
+
+def affine_fit_inputs(kind: str, S: int, H: int, volumes):
+    """Moving and fixed slices (S, H, H, 1), f32 in [0, 1], on the card.
+    ``smooth``: a soft-edged organ on a low-frequency texture, offset between
+    the two (the CPU tests' registration inputs). ``volumes``: the 256²
+    centre crop of S evenly spaced depths of the two CT volumes ``volumes``
+    (HU clipped to the configuration's range and mapped to [0, 1]),
+    avg-pooled down to H."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if kind == "smooth":
+        rng = np.random.RandomState(S + H)
+        yy, xx = np.mgrid[:H, :H] / H
+
+        def slice_(cy, cx, phase):
+            r2 = ((yy - cy) / 0.25) ** 2 + ((xx - cx) / 0.3) ** 2
+            soft = 1 / (1 + np.exp(-(1 - r2) / 0.08))
+            return 0.35 + 0.3 * soft + 0.05 * np.sin(2 * np.pi * (2 * yy + xx) + phase)
+
+        off = rng.uniform(-0.05, 0.05, (S, 4))
+        pair = [np.stack([slice_(0.5 + o[0], 0.45 + o[1], 0.0) for o in off]),
+                np.stack([slice_(0.47 + o[2], 0.5 + o[3], 0.3) for o in off])]
+        return tuple(torch.from_numpy(a[..., None].astype(np.float32)).cuda() for a in pair)
+    out = []
+    for vol in volumes:
+        D, Hv, Wv = vol.shape
+        z = torch.linspace(4, D - 5, S, device=vol.device).long()
+        y0, x0 = (Hv - 256) // 2, (Wv - 256) // 2
+        crop = vol[z, y0:y0 + 256, x0:x0 + 256].float().clamp(-1024, 3072)
+        img = ((crop + 1024) / 4096)[:, None]
+        if H != 256:
+            img = F.avg_pool2d(img, 256 // H)
+        out.append(img[:, 0, ..., None].contiguous())
+    return tuple(out)
+
+
+def check_affine_fit(kind: str, S: int, H: int, volumes):
+    """The affine fit kernel against its plain version, the fit through
+    autograd (which is also ``library_ms``'s yardstick, the fit the kernel
+    replaced), on one input (phase 2e): twice, on outputs the caching
+    allocator had filled with NaN; theta equal bit for bit (the kernel
+    repeats the card's roundings; see its source note), within 5e-5 for one
+    slice, where cuBLAS reduces autograd's theta gradient in another order
+    (a batch of one goes to another GEMM) and the two fits part by rounding;
+    each step's loss within 1e-5 relative of the MSE at the kernel's own
+    theta of that step (its fit of t steps is the first t steps of its fit;
+    summed in another order); two runs equal. Raises otherwise."""
+    import torch
+
+    from rpnet_tpu_torch.registration.affine import affine_warp, fit_affine, fit_affine_plain
+    from rpnet_tpu_torch.utils.timing import cuda_ms
+
+    iters, lr = AFFINE_FIT_ITERS, 0.01
+    mov, fix = affine_fit_inputs(kind, S, H, volumes)
+    fit_affine(mov, fix, iters, lr)    # the base tables, made once, outside the poison
+    runs = []
+    for _ in range(2):
+        poison = [torch.full(shape, float("nan"), device="cuda") for shape in ((S, 2, 3),
+                                                                               (iters, S))]
+        del poison
+        runs.append(fit_affine(mov, fix, iters, lr))
+    (theta, losses), (theta2, losses2) = runs
+    plain_theta, _ = fit_affine_plain(mov, fix, iters, lr)
+    path = [fit_affine(mov, fix, t, lr)[0] for t in range(iters)]   # theta before step t + 1
+    at_path = torch.stack([torch.mean((fix - affine_warp(mov, th)) ** 2, dim=(1, 2, 3))
+                           for th in path])
+    torch.cuda.synchronize()
+    per_slice = (theta - plain_theta).abs().flatten(1).max(1).values
+    res = {"kind": kind, "shape": [S, H, H], "max_abs_err": float(per_slice.max()),
+           "slices_not_bitwise": int((per_slice > 0).sum()),
+           "loss_rel_err": float(((losses - at_path).abs() / at_path.abs()).max()),
+           "bitwise_repeat": bool(torch.equal(theta, theta2) and torch.equal(losses, losses2)),
+           "finite": bool(torch.isfinite(theta).all() and torch.isfinite(losses).all()),
+           "theta_moved": float((plain_theta - torch.eye(2, 3, device="cuda")).abs().max())}
+    res["ms"] = cuda_ms(lambda: fit_affine(mov, fix, iters, lr), reps=10)
+    res["plain_ms"] = res["library_ms"] = cuda_ms(lambda: fit_affine_plain(mov, fix, iters, lr),
+                                                  reps=1)
+    res["bound_ms"], res["bound_by"], res["bound_unit"] = affine_fit_bound(S, H, H, iters)
+    theta_ok = res["max_abs_err"] <= 5e-5 if S == 1 else res["slices_not_bitwise"] == 0
+    ok = res["finite"] and theta_ok and res["loss_rel_err"] <= 1e-5 and res["bitwise_repeat"]
+    log(f"[affine-fit] {json.dumps(res)} (theta equal bit for bit, for one slice within 5e-5; "
+        f"losses rtol 1e-5 at the kernel's theta; two runs equal: "
+        f"{'ok' if ok else 'DISAGREES'})")
+    if not ok:
+        raise AssertionError(f"affine fit kernel disagrees with its plain version on "
+                             f"{kind} {S}x{H}x{H}: {res}")
+    return res
+
+
+def phase_affine_fit():
+    """Phase 2e: every ``AFFINE_FIT_CASES`` shape on both kinds of input
+    (see the module docstring) → {cases, launches, plans}."""
+    import torch
+
+    from benchmark.traffic.volumes import make_volume
+    from rpnet_tpu_torch.ops import kernels
+    from rpnet_tpu_torch.registration.affine import fit_affine
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    volumes = [make_volume((80, 272, 272), ("Liver",), {"Liver": 71}, gen, "cuda")[0]
+               for _ in range(2)]
+    plans = {}
+    for H in sorted({c[1] for c in AFFINE_FIT_CASES}):
+        plans[H] = kernels.affine_fit_plan(H, H)
+        log(f"[affine-fit] plan at {H}x{H}: {json.dumps(plans[H])}")
+    fit_affine.launches = 0
+    cases = {(S, H, kind): check_affine_fit(kind, S, H, volumes)
+             for S, H, _ in AFFINE_FIT_CASES for kind in ("smooth", "volumes")}
+    return {"cases": cases, "launches": fit_affine.launches, "plans": plans}
 
 
 def episode_slices(cfg, n: int = 4):
@@ -3441,14 +3590,28 @@ def run_kernels(run):
             "variant_train": variant_train}
 
 
+def fit_launches(fn):
+    """fn() with ``fit_affine.launches`` set to 0 just before → (its result,
+    the affine fit kernel's launches)."""
+    from rpnet_tpu_torch.registration.affine import fit_affine
+
+    fit_affine.launches = 0
+    out = fn()
+    return out, fit_affine.launches
+
+
 def run_main(run):
-    _, launches, outputs, episodes = phase_main_path(run.eval_data()["yaml"])
-    return {"launches": launches, "outputs": outputs, "episodes": episodes}
+    (_, launches, outputs, episodes), fits = fit_launches(
+        lambda: phase_main_path(run.eval_data()["yaml"]))
+    log(f"[main] affine fit kernel launches: {fits}")
+    return {"launches": launches, "outputs": outputs, "episodes": episodes,
+            "fit_launches": fits}
 
 
 def run_training(run):
-    res, launches, _ = phase_training(*run.train_data())
-    return {"res": res, "launches": launches}
+    (res, launches, _), fits = fit_launches(lambda: phase_training(*run.train_data()))
+    log(f"[train] affine fit kernel launches: {fits}")
+    return {"res": res, "launches": launches, "fit_launches": fits}
 
 
 def run_train_breadth(run):
@@ -3469,6 +3632,7 @@ PHASES = {
     "sweep-kernels": (lambda run: phase_sweep_kernels(), ()),
     "sweep": (lambda run: phase_sweep(), ()),
     "grid-sample": (lambda run: (check_grid_sample(), check_affine_sharp()), ()),
+    "affine-fit": (lambda run: phase_affine_fit(), ()),
     "main": (run_main, ()),
     "eval-switches": (lambda run: phase_eval_switches(
         run.eval_data()["yaml"], run.eval_data()["dq"], run.results["main"]["outputs"]),
@@ -3610,6 +3774,19 @@ def kernel_entries(results):
             entries.append(entry(name, source, line, k["variant"][kind], opt_in(name),
                                  launches_by_run={n: v[name].get(name, 0)
                                                   for n, v in routes.items()}))
+    fit = get("affine-fit")
+    if fit:
+        fit_runs = {"affine-fit": fit["launches"],
+                    **ran("main", lambda: {"main": results["main"]["fit_launches"]}),
+                    **ran("training", lambda: {"train": results["training"]["fit_launches"]})}
+        row = fit["cases"][(AFFINE_FIT_CASES[1][0], AFFINE_FIT_CASES[1][1], "volumes")]
+        entries.append(entry(
+            "fit_affine", "affine_fit.cu",
+            "none: the JAX package leaves the fit to XLA (rpnet_tpu/registration/affine.py)",
+            row, fit_runs.get("main"), launches_by_run=fit_runs, library_ms=row["library_ms"],
+            cases=[{k: c[k] for k in ("kind", "shape", "max_abs_err", "loss_rel_err", "ms",
+                                      "plain_ms", "bound_ms")}
+                   for c in fit["cases"].values()]))
     if get("sweep-kernels") and get("sweep"):
         sweep_timed, sweep_launches = get("sweep-kernels"), get("sweep")
         entries += [

@@ -23,12 +23,17 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+
+# the affine fit kernel's limits (ops/csrc/affine_fit.cu's MAX_SLICES, MAX_SIDE)
+AFFINE_FIT_MAX_SLICES = 65535
+AFFINE_FIT_MAX_SIDE = 1024
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -144,6 +149,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.local_corr_sweep_plan.restype = i
         lib.local_corr_sweep_error_string.argtypes = [i]
         lib.local_corr_sweep_error_string.restype = ctypes.c_char_p
+    elif name == "affine_fit":
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.affine_fit_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f, p]
+        lib.affine_fit_f32.restype = i
+        lib.affine_fit_plan.argtypes = [i, i, p, p, p, p, p]
+        lib.affine_fit_plan.restype = i
+        lib.affine_fit_error_string.argtypes = [i]
+        lib.affine_fit_error_string.restype = ctypes.c_char_p
 
 
 def launch_local_corr(fm1: torch.Tensor, fm2: torch.Tensor, out: torch.Tensor,
@@ -337,3 +350,40 @@ def launch_local_corr_sweep(kind: str, fm1: torch.Tensor, fm2: torch.Tensor,
         msg = lib.local_corr_sweep_error_string(err).decode()
         raise RuntimeError(f"local_corr_sweep ({kind}) launch failed: {msg} "
                            f"(cudaError {err})")
+
+
+def launch_affine_fit(moving: torch.Tensor, fixed: torch.Tensor, base_x: torch.Tensor,
+                      base_y: torch.Tensor, theta: torch.Tensor, losses: torch.Tensor,
+                      iters: int, lr: float) -> None:
+    """Launch the affine fit kernel (the whole fit, one launch) on the current
+    stream of the tensors' device: moving, fixed (S, H, W, 1) f32, base_x
+    (W,), base_y (H,) → theta (S, 2, 3), losses (iters, S). The caller
+    (``registration.affine.fit_affine``) has checked device, dtype, shape and
+    contiguity."""
+    lib = load("affine_fit")
+    S, H, W, _ = moving.shape
+    # 1/N as torch's division by a Python number makes it on the card: in f32
+    inv_n = float(np.float32(1.0) / np.float32(H * W))
+    with torch.cuda.device(moving.device):
+        stream = torch.cuda.current_stream(moving.device).cuda_stream
+        err = lib.affine_fit_f32(moving.data_ptr(), fixed.data_ptr(), base_x.data_ptr(),
+                                 base_y.data_ptr(), theta.data_ptr(), losses.data_ptr(),
+                                 S, H, W, iters, lr, inv_n, stream)
+    if err != 0:
+        msg = lib.affine_fit_error_string(err).decode()
+        raise RuntimeError(f"affine_fit launch failed: {msg} (cudaError {err})")
+
+
+def affine_fit_plan(H: int, W: int) -> Dict[str, int]:
+    """The affine fit kernel's launch plan at H × W: threads a block (one
+    block a slice), pixels a chunk, resident blocks an SM (the CUDA
+    occupancy calculator), registers a thread and local memory a thread
+    (bytes; ptxas spills)."""
+    lib = load("affine_fit")
+    out = [ctypes.c_int() for _ in range(5)]
+    err = lib.affine_fit_plan(H, W, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        msg = lib.affine_fit_error_string(err).decode()
+        raise RuntimeError(f"affine_fit_plan failed: {msg} (cudaError {err})")
+    return dict(zip(("threads", "chunk", "blocks_per_sm", "registers", "local_bytes"),
+                    (v.value for v in out)))

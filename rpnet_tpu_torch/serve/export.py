@@ -2,15 +2,17 @@
 
 The counterpart of ``rpnet_tpu/serve/export.py``. The whole episode —
 registration fit, network, refinement, metrics (``episode/pipeline.py``
-``episode_metrics_fn``) — is captured by ``torch.export.export`` (non-strict:
-the affine fit's ``torch.autograd.grad`` is traced into the graph, whose
-backward operators compute the fit) into an ``ExportedProgram`` that a
-server reloads without the model's code. The correlation is one node of
-the graph, a custom op of ``ops/correlation.py`` (``rpnet_torch::local_corr``
-on the default route), so the reloaded program launches the hand-written
-kernel on the card and counts it as the live path does. The ops are
-registered when ``rpnet_tpu_torch.ops.correlation`` is imported, which
-this module does.
+``episode_metrics_fn``) — is captured by ``torch.export.export`` (non-strict)
+into an ``ExportedProgram`` that a server reloads without the model's code.
+The correlation is one node of the graph, a custom op of
+``ops/correlation.py`` (``rpnet_torch::local_corr`` on the default route),
+so the reloaded program launches the hand-written kernel on the card and
+counts it as the live path does. So is the affine fit on the card
+(``rpnet_torch::affine_fit``, ``registration/affine.py``); on the CPU the
+fit's ``torch.autograd.grad`` is traced into the graph, whose backward
+operators compute it. The ops are registered when
+``rpnet_tpu_torch.ops.correlation`` and ``rpnet_tpu_torch.registration.affine``
+are imported, which this module does.
 
 Artifact layout (a directory):
 
@@ -26,8 +28,8 @@ Notes
 * Shapes are static: ``slices`` query slices (the runner pads with
   ``slice_mask`` zero and truncates), one artifact a slice count, as in the
   JAX exporter.
-* The device is part of the program: factory tensors (the affine fit's
-  identity, the cached resize matrices) are recorded with the device they
+* The device is part of the program: factory tensors (the zero-flow
+  identity grid, the cached resize matrices) are recorded with the device they
   were made on, so :func:`load_artifact` refuses another device type.
 * The correlation route is resolved while tracing
   (``ops.correlation.correlation_route``): an artifact serves the route it
@@ -46,6 +48,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from rpnet_tpu_torch.ops.correlation import OP_NAMESPACE   # registers the custom ops
+from rpnet_tpu_torch.registration import affine   # noqa: F401 — registers affine_fit
 
 FORMAT_VERSION = 1
 PROGRAM_FILE = "program.pt2"
@@ -121,11 +124,12 @@ def graph_nodes(exported):
 
 
 def correlation_ops(exported) -> Dict[str, int]:
-    """The ``rpnet_torch`` custom-op nodes of the program, counted by op."""
+    """The correlation custom-op nodes (``rpnet_torch::local_corr*``) of the
+    program, counted by op."""
     counts: Dict[str, int] = {}
     for node in graph_nodes(exported):
         name = str(node.target) if node.op == "call_function" else ""
-        if name.startswith(OP_NAMESPACE + "."):
+        if name.startswith(OP_NAMESPACE + ".local_corr"):
             counts[name] = counts.get(name, 0) + 1
     return counts
 
