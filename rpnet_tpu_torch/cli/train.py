@@ -14,7 +14,8 @@ warm-starts the fresh model before that (``rpnet_tpu/train/checkpoint.py:
 124-155``): with ``backbone: vgg`` a torchvision VGG16 ``state_dict`` fills
 the encoder's 13 convolutions in order (``train/convert.
 convert_torchvision_vgg16``), with any other backbone a full RP_Net ``.pth``
-is loaded onto the model (``train/convert.load_into``). The epoch's mean
+is loaded onto the model (``train/convert.load_into``). ``backbone:
+sam_vit`` runs in eval only: this CLI refuses it. The epoch's mean
 loss goes to TensorBoard as ``train/loss`` under ``out_dir/runs`` where
 ``tensorboard`` is installed, as the JAX CLI writes it; without it the run
 trains all the same and says so.
@@ -153,6 +154,10 @@ def main(argv=None):
     device = resolve_device(args.platform)
     config = Config(load_yaml(args.yaml))
     check_net(config)
+    if config["net"] == "RP_Net" and config["backbone"] == "sam_vit":
+        raise NotImplementedError(
+            "backbone sam_vit runs in eval only (cli.test_rpnet): training SAM's ViT "
+            "encoder at 1024² is not supported")
     device = start_process(config, device)
 
     seed = int(config.get("seed", 0))

@@ -56,14 +56,17 @@ _DEFAULTS: Dict[str, Any] = {
     "eval_classes": ["Liver"],
     # --- model (net/model.py:4-7, net/rp_net.py:195-224) ---
     "net": "RP_Net",
-    "backbone": "UNet",        # vgg | UNet | resnet
+    "backbone": "UNet",        # vgg | UNet | resnet | sam_vit (SAM's ViT
+                               # image encoder, eval only)
     "scale": None,             # feature-map downsample used for mask pooling:
                                # 8 for vgg, 4 otherwise (rpnet_tpu/models/
                                # factory.py:22; set in Config)
     "unet_normalize_type": "BatchNorm2d",
     "mask_feature_map": "no",  # U-Net mask injection: x, x2, x3, x5 or no
     "use_relation_enc": "relation",  # relation | concat
-    "pretrained_path": None,   # train CLI warm start (VGG16 or a full RP_Net .pth)
+    "pretrained_path": None,   # train CLI warm start (VGG16 or a full RP_Net
+                               # .pth); with sam_vit a SAM / MedSAM .pth whose
+                               # image_encoder.* fills the encoder
     # --- refinement (net/rp_net.py:201, :281-312; example.yml:107-110) ---
     "n_iter_refinement": 4,
     "n_test_iter_refinement": 10,
@@ -140,6 +143,15 @@ _LGCA_DEFAULTS: Dict[str, Any] = {
 }
 
 
+# The widths of ``backbone: sam_vit``, a key of the port alone (the JAX
+# package has no such backbone): ``build_sam_vit_b``'s; a YAML's ``sam_vit``
+# dict overrides the keys it gives.
+SAM_VIT_B: Dict[str, Any] = {"img_size": 1024, "patch_size": 16, "embed_dim": 768,
+                             "depth": 12, "num_heads": 12,
+                             "global_attn_indexes": [2, 5, 8, 11], "window_size": 14,
+                             "out_chans": 256}
+
+
 @dataclasses.dataclass
 class Config:
     """The flat YAML dict over the defaults; ``cfg[key]`` / ``cfg.get(key,
@@ -152,6 +164,7 @@ class Config:
         merged.update({k: v for k, v in self.raw.items() if v is not None or k not in merged})
         if merged.get("test_shot") is None:
             merged["test_shot"] = merged["n_shot"]
+        merged["sam_vit"] = dict(SAM_VIT_B, **(self.raw.get("sam_vit") or {}))
         if merged.get("scale") is None:
             merged["scale"] = 8 if merged["backbone"] == "vgg" else 4
         self._d = merged

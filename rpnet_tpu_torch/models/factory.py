@@ -4,7 +4,11 @@ The counterpart of ``rpnet_tpu/models/factory.py``: :func:`build_rpnet` for
 eval and (with ``align`` and ``num_iter``) training, :func:`build_lgcanet`
 for ``net: LGCANet_V3``, both in ``model_factory``; the trainers switch the
 model to training mode. Backbones ``UNet`` (with ``mask_feature_map``),
-``vgg`` and ``resnet``; relation modes ``relation`` and ``concat``; the
+``vgg``, ``resnet`` and ``sam_vit`` (SAM's ViT image encoder, widths from
+the ``sam_vit`` key, ViT-B's by default; eval only: its Linear layers are
+drawn from the same generator, and ``pretrained_path`` names a SAM or
+MedSAM checkpoint whose ``image_encoder.*`` loads as ``encoder.*``);
+relation modes ``relation`` and ``concat``; the
 U-Net's ``unet_normalize_type`` BatchNorm2d, InstanceNorm2d or GroupNorm
 (the JAX ``Norm2d``'s kinds; others raise there and here). A plain dict
 takes :class:`~rpnet_tpu_torch.config.Config`'s defaults, where ``scale``
@@ -20,6 +24,7 @@ from rpnet_tpu_torch.config import Config
 from rpnet_tpu_torch.models.blocks import init_
 from rpnet_tpu_torch.models.lgca import LGCANetV3
 from rpnet_tpu_torch.models.rpnet import RPNet
+from rpnet_tpu_torch.models.sam_vit import encoder_state_from_sam, init_linear_
 
 _PORTED = {"net": ("RP_Net",)}
 
@@ -46,9 +51,29 @@ def build_rpnet(config, num_iter: int | None = None, seed: int = 0,
         mask_feature_map=config["mask_feature_map"],
         use_relation_enc=config["use_relation_enc"],
         norm=config["unet_normalize_type"],
+        sam_vit=config["sam_vit"],
     )
-    init_(model, torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    init_(model, gen)
+    if config["backbone"] == "sam_vit":
+        init_linear_(model, gen)
+        if config.get("pretrained_path"):
+            load_sam_encoder(model, config["pretrained_path"])
     return model.to(device).eval()
+
+
+def load_sam_encoder(model: RPNet, path: str) -> None:
+    """A SAM or MedSAM ``.pth`` (``{'state_dict': ...}`` or a bare state
+    dict) into the ViT encoder: its ``image_encoder.*`` as ``encoder.*``;
+    every encoder tensor must be covered."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    sd = encoder_state_from_sam(raw.get("state_dict", raw))
+    missing = [k for k in model.state_dict() if k.startswith("encoder.") and k not in sd]
+    if missing:
+        raise ValueError(f"{path}: no image_encoder tensor for {len(missing)} encoder "
+                         f"tensors (e.g. {missing[0]})")
+    model.load_state_dict(sd, strict=False)
+    print(f"[sam_vit encoder from {path}]")
 
 
 def build_lgcanet(config, seed: int = 0, device="cpu") -> LGCANetV3:

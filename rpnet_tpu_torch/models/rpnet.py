@@ -15,12 +15,15 @@ Kept from the JAX package (same values as upstream):
     the mask instead of upsampling the features; its spatial sums run in f32
     and are cast back to the network dtype after the reductions.
 
-The backbone is the U-Net (optionally with mask injection), VGG16 or a
-ResNet18-style encoder; VGG and ResNet take the single-channel image
-broadcast to 3 channels. In the merged eval pass the encoder gets each
-support's foreground mask and, for the query, support (0, 0)'s mask, as the
-JAX package passes ``fore_mask[0, 0]`` (its rpnet.py:190-196). The relation
-mode is the CRE (``relation``) or :class:`SimpleConcat` (``concat``).
+The backbone is the U-Net (optionally with mask injection), VGG16, a
+ResNet18-style encoder or SAM's ViT image encoder (``sam_vit``,
+``models/sam_vit.py``); VGG and ResNet take the single-channel image
+broadcast to 3 channels, the ViT takes it resized to its ``img_size`` and
+broadcast to 3 channels, in micro-batches (``SamViTEncoder.encode``). In
+the merged eval pass the encoder gets each support's foreground mask and,
+for the query, support (0, 0)'s mask, as the JAX package passes
+``fore_mask[0, 0]`` (its rpnet.py:190-196). The relation mode is the CRE
+(``relation``) or :class:`SimpleConcat` (``concat``).
 
 The refinement loop is a Python loop. Tensors are channels-last as in the
 JAX package.
@@ -45,6 +48,7 @@ from rpnet_tpu_torch.models.blocks import set_episode_groups
 from rpnet_tpu_torch.models.cre import ContextCorrelationEncoder, SimpleConcat
 from rpnet_tpu_torch.models.losses import one_hot
 from rpnet_tpu_torch.models.resnet import ResNet18Encoder
+from rpnet_tpu_torch.models.sam_vit import SamViTEncoder
 from rpnet_tpu_torch.models.unet import UNet
 from rpnet_tpu_torch.models.vgg import VGGEncoder
 from rpnet_tpu_torch.ops.sampling import (avg_pool2d, interpolate_bilinear,
@@ -106,7 +110,7 @@ class RPNet(nn.Module):
     def __init__(self, scale: int = 4, num_iter: int = 10, radius: int = 5,
                  soft_mask: bool = False, align: bool = True, backbone: str = "UNet",
                  mask_feature_map="no", use_relation_enc: str = "relation",
-                 norm: str = "BatchNorm2d"):
+                 norm: str = "BatchNorm2d", sam_vit: dict | None = None):
         super().__init__()
         self.scale = scale
         self.num_iter = num_iter
@@ -120,8 +124,10 @@ class RPNet(nn.Module):
             self.encoder = VGGEncoder()
         elif backbone == "resnet":
             self.encoder = ResNet18Encoder()
+        elif backbone == "sam_vit":
+            self.encoder = SamViTEncoder(**(sam_vit or {}))
         else:
-            raise NotImplementedError(f"backbone {backbone!r}: vgg, UNet or resnet")
+            raise NotImplementedError(f"backbone {backbone!r}: vgg, UNet, resnet or sam_vit")
         C = self.encoder.out_channels
         if use_relation_enc == "relation":
             self.cre = ContextCorrelationEncoder(C, radius)
@@ -134,6 +140,8 @@ class RPNet(nn.Module):
     def _encode(self, imgs, masks):
         """imgs (N, H, W, 1), masks (N, H, W) or None when the encoder takes
         no mask → features (N, h, w, C)."""
+        if self.backbone == "sam_vit":
+            return self.encoder.encode(imgs)
         if self.backbone != "UNet":
             return self.encoder(imgs.expand(-1, -1, -1, 3).contiguous())
         return self.encoder(imgs, None if masks is None else masks[..., None])
